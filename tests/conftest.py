@@ -30,6 +30,7 @@ import pytest  # noqa: E402
 def pytest_configure(config):
     config.addinivalue_line("markers", "tpu: requires real TPU hardware")
     config.addinivalue_line("markers", "slow: long-running training test")
+    config.addinivalue_line("markers", "cuda: requires a CUDA GPU (tpinn_torch kernels)")
 
 
 def pytest_addoption(parser):
