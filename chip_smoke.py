@@ -7,22 +7,44 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 1. Device: require CUDA, print the card (nvidia-smi name and power
    limit), turn TF32 off everywhere.
-2. Build: compile kernel B1 (tpinn_torch/kernels/csrc/taylor2_fwd.cu)
-   with nvcc for sm_90a and print the build time and ptxas report.
-3. Kernel vs plain: kernel B1 against its plain PyTorch version and
-   against the generic torch.func.jvp engine, per stream, on the 6x80
-   annulus net (N = 262,144 and a ragged 1,077), a sin-first net with
-   pad_to=3, and a 3-coordinate net.
-4. Serve (the main path): two annulus checkpoints written from a seeded
-   initialisation in the format run_training writes — the 6x80 hard-BC
-   net and a 2-stage hard-BC chain — each served by PINNServer on the
-   card behind ThreadingHTTPServer; /health, /predict and /residual at 1,
-   1,000 and 65,536 points, checked against the direct predictor, the
-   plain-version residual and the exact hard-BC boundary values.  The
-   kernel's launch count is reset before this phase and must grow with
-   every /residual request.
-5. Timing: kernel vs plain version, alone and inside the residual, at the
-   serving shapes (medians of synchronised runs).
+2. Build: compile kernels B1, B2 and B3 (tpinn_torch/kernels/csrc/
+   taylor2_fwd.cu, taylor2_bwd.cu, adam.cu) with nvcc for sm_90a, one
+   nvcc process each, all started together; print the build times and
+   the ptxas register/spill report.
+3. Kernel vs plain:
+   a. B1 against its plain PyTorch version and against the generic
+      torch.func.jvp engine, per stream, on the 6x80 annulus net (N =
+      262,144 and a ragged 1,077), a sin-first net with pad_to=3, and a
+      3-coordinate net.
+   b. B2 through the autograd Function (B1 forward, B2 backward) against
+      B2's plain version on the same cotangent and against autograd
+      through the plain Taylor-2 recurrence, per leaf, on the 6x80
+      annulus net at the recipe's batch (46,000) and a ragged 1,077, the
+      pad_to=3 net and the 3-coordinate net; the same under the hard-BC
+      product rule; points that require a gradient must be refused.
+   c. B3 against its plain version over 1,000 steps, with a learning-rate
+      change half-way, on n = 32,801 (the 6x80 net on 3 features) and an
+      odd n.
+4. Serve (the first slice's path): two annulus checkpoints written from
+   a seeded initialisation in the format run_training writes — the 6x80
+   hard-BC net and a 2-stage hard-BC chain — each served by PINNServer on
+   the card behind ThreadingHTTPServer; /health, /predict and /residual
+   at 1, 1,000 and 65,536 points, checked against the direct predictor,
+   the plain-version residual and the exact hard-BC boundary values.  B1's
+   launch count is reset before this phase and must grow with every
+   /residual request.
+5. Train (this slice's main path): first, at step 0, the kernel-engine
+   gradient of the full loss against the generic engine's.  Then
+   run_training on the hard-BC annulus at the recipe's batch: stage 1
+   6x80 tanh, stage 2 6x50 sin composed, about 300 Adam steps each
+   through B1 + B2 + B3, then L-BFGS; launch counts reset before and read
+   after, loss drops, rel-L2, the 11 artifacts and the checkpoints
+   checked; the stage-2 checkpoint is served and /predict checked
+   against the trainer's predictor.
+6. Timing (medians of synchronised runs): B1 alone and inside the
+   residual at the serving shapes; the Adam step with the kernel engine
+   against the plain engine at the recipe's shape and at bench.py's; B2
+   and B3 alone against their plain versions.
 
 The line before the last is a JSON object describing the kernels; the
 last line is {"ok": true, "device": {...}}.
@@ -30,8 +52,11 @@ last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -48,7 +73,24 @@ IDX5 = [(), (0,), (1,), (0, 0), (1, 1)]           # the annulus residual's plan
 IDX6 = IDX5 + [(0, 1)]
 REL_TOL = 1e-4      # per stream: max |kernel - ref| / max |ref|
 RES_RTOL, RES_ATOL = 1e-3, 1e-4   # residual tolerance (1/r^2 scales u_tt)
+# B2, per leaf: max |kernel - ref| <= GRAD_REL * max |ref| + GRAD_ABS (fp32
+# sums over all points in another order)
+GRAD_REL, GRAD_ABS = 1e-4, 1e-6
+# step-0 gradient of the full loss, kernel vs generic engine (the tolerance
+# of tests/test_kernels.py for the Pallas custom_vjp)
+STEP0_RTOL, STEP0_ATOL = 2e-3, 2e-5
+ADAM_RTOL = 1e-6    # B3 vs plain, per vector: max |diff| / max |ref|
 TIMED_RUNS = 15
+KERNELS = ("taylor2_fwd", "taylor2_bwd", "adam")
+# the annulus_laplace recipe's batch (tpinn/problems/recipes.py:92-102)
+RECIPE_COUNTS = dict(n_col=30000, n_band=5000, n_adaptive=10000, n_bd=500)
+RECIPE_N = 30000 + 5000 + 10000 + 2 * 500
+# bench.py's shape: 6x60 soft-BC annulus, 5,200 points (bench.py:44-46)
+BENCH_COUNTS = dict(n_col=3000, n_band=1000, n_adaptive=1000, n_bd=100)
+ADAM_N = 32_801     # parameters of the 6x80 net on 3 features
+ADAM_STEPS = 1000
+TRAIN_ADAM = 300    # Adam steps per stage in the training phase
+TRAIN_LBFGS = 30    # lbfgs_epochs per stage (max_iters = epochs / 3)
 
 
 def check(ok: bool, what: str) -> None:
@@ -167,6 +209,211 @@ def phase_kernel_vs_plain(dev, gen):
     return worst_abs
 
 
+def leaves_of(params):
+    return [t for layer in params["layers"] for t in (layer["w"], layer["b"])]
+
+
+def check_grads(name, got, ref, rtol=None, atol=None) -> float:
+    """Per leaf: max |got - ref| <= GRAD_REL * max |ref| + GRAD_ABS, or,
+    with rtol/atol, |got - ref| <= atol + rtol * |ref| elementwise.
+    Returns the largest absolute difference."""
+    worst = 0.0
+    for k, (a, b) in enumerate(zip(got, ref)):
+        err = (a - b).abs().max().item()
+        scale = b.abs().max().item()
+        if rtol is None:
+            ok = err <= GRAD_REL * scale + GRAD_ABS
+        else:
+            ok = bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+        check(ok, f"{name}, leaf {k}: max |diff| {err:.3e}, max |ref| "
+                  f"{scale:.3e}")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_b2(dev, gen):
+    """B1 + B2 through the autograd Function against B2's plain version
+    and against autograd through the plain Taylor-2 recurrence."""
+    import torch
+
+    from tpinn_torch.core import net, taylor
+    from tpinn_torch.kernels import mlp_taylor, taylor_vjp
+
+    sizes = (RECIPE_N, 1_077, 16_384, 8_192)   # per case of kernel_cases()
+    worst_abs = 0.0
+    for n, (name, spec, fm, lo, hi, streams, _) in zip(sizes, kernel_cases()):
+        params = net.init_params(gen, spec, fm, dev)
+        leaves = leaves_of(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        z = box_points(gen, n, lo, hi, dev)
+        ct = torch.randn((n, len(streams)), generator=gen).to(dev)
+        before = (mlp_taylor.LAUNCHES, taylor_vjp.LAUNCHES)
+        runs = []
+        for _ in range(2):
+            out = taylor_vjp.kernel_streams(params, z, spec, fm, lo, hi,
+                                            streams)
+            runs.append(torch.autograd.grad((out * ct).sum(), leaves))
+        torch.cuda.synchronize()
+        grew = (mlp_taylor.LAUNCHES - before[0],
+                taylor_vjp.LAUNCHES - before[1])
+        check(grew == (2, 2), f"{name}: B1/B2 launches {grew}, expected (2, 2)")
+        got = runs[0]
+        check(all(torch.equal(a, b) for a, b in zip(*runs)),
+              f"{name}: B2 gradient not bitwise repeatable")
+        layers = [{"w": t["w"].detach(), "b": t["b"].detach()}
+                  for t in params["layers"]]
+        plain = leaves_of({"layers": taylor_vjp.taylor2_backward_reference(
+            layers, z, ct, spec, fm, lo, hi, streams)})
+        lb = torch.tensor(lo, dtype=torch.float32, device=dev)
+        ub = torch.tensor(hi, dtype=torch.float32, device=dev)
+        parts = taylor.taylor2_mlp(params, z, spec, fm, lb, ub, streams)
+        cols = torch.cat([parts[st] for st in streams], dim=1)
+        auto = torch.autograd.grad((cols * ct).sum(), leaves)
+        err_p = check_grads(f"{name}: B2 vs plain", got, plain)
+        err_a = check_grads(f"{name}: B2 vs autograd", got, auto)
+        worst_abs = max(worst_abs, err_p)
+        print(f"  {name}: N={n} S={len(streams)} max |grad| "
+              f"{max(g.abs().max().item() for g in plain):.4e}, max abs err "
+              f"vs plain {err_p:.3e}, vs autograd {err_a:.3e}, repeatable")
+        try:
+            taylor_vjp.kernel_streams(params, z.clone().requires_grad_(True),
+                                      spec, fm, lo, hi, streams)
+        except ValueError:
+            pass
+        else:
+            raise RuntimeError(f"{name}: points requiring a gradient were "
+                               f"not refused")
+
+    # the hard-BC product rule: the residual-MSE gradient of the kernel
+    # engine against the plain engine and the generic jvp engine
+    from tpinn_torch import problems
+
+    problem = problems.with_hard_bc(problems.annulus_laplace())
+    for n in (RECIPE_N, 1_077):
+        pred, compiled, params, data, lw = loss_setup(
+            problem, annulus_spec(), dev, col_only=n)
+        got, ref = loss_grads(pred, compiled, params, data, lw, "kernel")
+        plain, _ = loss_grads(plain_engine(pred), compiled, params, data, lw,
+                              "fused", ref)
+        generic, _ = loss_grads(pred, compiled, params, data, lw, "generic",
+                                ref)
+        err_p = check_grads(f"hard-BC N={n}: kernel vs plain", got, plain)
+        err_g = check_grads(f"hard-BC N={n}: kernel vs generic", got, generic,
+                            STEP0_RTOL, STEP0_ATOL)
+        worst_abs = max(worst_abs, err_p)
+        print(f"  hard-BC residual MSE, 6x80, N={n}: max abs err vs plain "
+              f"{err_p:.3e}, vs generic {err_g:.3e}")
+    return worst_abs
+
+
+def phase_b3(dev):
+    """B3 against its plain version over ADAM_STEPS steps, lr halved at
+    the midpoint."""
+    import torch
+
+    from tpinn_torch.kernels import adam
+
+    worst_abs = 0.0
+    for n in (ADAM_N, 1_001):
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        p = torch.randn(n, generator=gen, device=dev)
+        m, v = torch.zeros_like(p), torch.zeros_like(p)
+        lr = torch.full((1,), 1e-3, device=dev)
+        pr, mr, vr, lr_r = p.clone(), m.clone(), v.clone(), lr.clone()
+        before = adam.LAUNCHES
+        for t in range(1, ADAM_STEPS + 1):
+            if t == ADAM_STEPS // 2 + 1:
+                lr.mul_(0.5)
+                lr_r.mul_(0.5)
+            g = torch.randn(n, generator=gen, device=dev)
+            adam.adam_update_flat(g, p, m, v, lr, t)
+            adam.adam_update_reference(g, pr, mr, vr, lr_r, t)
+        torch.cuda.synchronize()
+        check(adam.LAUNCHES - before == ADAM_STEPS,
+              f"B3 launched {adam.LAUNCHES - before} times in {ADAM_STEPS} "
+              f"steps")
+        errs = []
+        for what, a, b in (("p", p, pr), ("m", m, mr), ("v", v, vr)):
+            err = (a - b).abs().max().item()
+            scale = b.abs().max().item()
+            check(err <= ADAM_RTOL * scale,
+                  f"B3 n={n} {what}: max |diff| {err:.3e}, max |ref| "
+                  f"{scale:.3e}")
+            errs.append(f"{what} {err:.2e}")
+            worst_abs = max(worst_abs, err)
+        print(f"  B3 n={n}: {ADAM_STEPS} steps, lr halved at step "
+              f"{ADAM_STEPS // 2 + 1}; max abs err vs plain "
+              + ", ".join(errs))
+    return worst_abs
+
+
+def annulus_spec(width=80):
+    from tpinn_torch.core import net
+
+    return net.MLPSpec(depth=6, width=width)
+
+
+def loss_setup(problem, mspec, dev, counts=None, col_only=None):
+    """Predictor, compiled PDE, seeded params, a point set and lw for the
+    Adam-step checks and timings: the sampler's draw at ``counts``, or
+    ``col_only`` uniform collocation points and no BC terms."""
+    import torch
+
+    from tpinn_torch.core import net, pde, sample
+
+    fm = net.feature_map_for(problem.feature_kinds)
+    lb = torch.tensor(problem.lb, dtype=torch.float32, device=dev)
+    ub = torch.tensor(problem.ub, dtype=torch.float32, device=dev)
+    pred = net.make_predictor(mspec, fm, lb, ub)
+    if problem.hard_bc:
+        pred = net.wrap_hard_bc(pred, *(pde.compile_coord_expr(
+            e, problem.coords) for e in problem.hard_bc))
+    compiled = pde.compile_pde(problem.equation, problem.coords)
+    params = net.init_params(torch.Generator().manual_seed(SEED), mspec, fm,
+                             dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    if col_only is not None:
+        data = {"x_col": box_points(torch.Generator().manual_seed(SEED),
+                                    col_only, problem.lb, problem.ub, dev),
+                "x_bd": [], "u_bd": []}
+    else:
+        sample_fn, grids = sample.sampler_for(
+            sample.SamplerConfig(**counts), problem.bc_groups, problem.lb,
+            problem.ub, torch.float32, dev)
+        data = sample_fn(gen, torch.ones_like(grids[0]))
+    lw = torch.tensor([0.05, 0.0], device=dev)
+    return pred, compiled, params, data, lw
+
+
+def plain_engine(pred):
+    """``pred`` whose structured partials come from B1's plain version
+    under autograd: make_loss(engine='fused') on it launches no kernel."""
+    def f(params, z):
+        return pred(params, z)
+
+    f.tpinn_partials = lambda p, z, idx: plain_partials(pred, p, z, idx)
+    return f
+
+
+def loss_grads(pred, compiled, params, data, lw, engine, ref=None):
+    """Per-leaf gradient of the normalised loss (ref = the loss at these
+    params unless given) with one residual engine; returns (grads, ref)."""
+    import torch
+
+    from tpinn_torch.core import loss as loss_mod
+
+    loss_fn = loss_mod.make_loss(pred, compiled, engine=engine)
+    leaves = [t.detach().requires_grad_(True) for t in leaves_of(params)]
+    p = {"layers": [{"w": leaves[2 * i], "b": leaves[2 * i + 1]}
+                    for i in range(len(leaves) // 2)]}
+    if ref is None:
+        with torch.no_grad():
+            ref = loss_fn(p, data, lw, torch.ones((), device=lw.device))[1][0]
+    loss_n, _ = loss_fn(p, data, lw, ref)
+    return torch.autograd.grad(loss_n, leaves), ref
+
+
 def write_checkpoints(gen):
     """The 6x80 hard-BC annulus net and a 2-stage hard-BC chain, in the
     format tpinn's run_training writes (tpinn/core/train.py)."""
@@ -207,22 +454,36 @@ def post(base, route, points):
         return json.loads(r.read())
 
 
+@contextlib.contextmanager
+def http_server(srv):
+    """Serve ``srv`` over HTTP on a free localhost port for the block;
+    yields the base URL and stops the server thread after it."""
+    from tpinn_torch.app.serve import make_handler
+
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(srv))
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    try:
+        yield f"http://127.0.0.1:{httpd.server_address[1]}"
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=60)
+    check(not th.is_alive(), "server thread did not stop")
+
+
 def phase_serve(dev, ckpts):
     import numpy as np
     import torch
 
-    from tpinn_torch.app.serve import PINNServer, make_handler
+    from tpinn_torch.app.serve import PINNServer
     from tpinn_torch.kernels import mlp_taylor
 
     rng = np.random.default_rng(SEED)
     servers = []
     for name, path in ckpts:
         srv = PINNServer(str(path), "annulus_laplace", device=dev)
-        httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(srv))
-        th = threading.Thread(target=httpd.serve_forever, daemon=True)
-        th.start()
-        base = f"http://127.0.0.1:{httpd.server_address[1]}"
-        try:
+        with http_server(srv) as base:
             with urllib.request.urlopen(base + "/health", timeout=60) as r:
                 h = json.loads(r.read())
             check(h.get("ok") is True and h["problem"] == "annulus_laplace",
@@ -270,13 +531,243 @@ def phase_serve(dev, ckpts):
                   f"{name}: boundary values |u(0.1)-1| {e_in}, |u(1)| {e_out}")
             print(f"  {name}: |u(0.1,t) - 1| <= {e_in:.1e}, "
                   f"|u(1,t)| <= {e_out:.1e}")
-        finally:
-            httpd.shutdown()
-            httpd.server_close()
-            th.join(timeout=60)
-        check(not th.is_alive(), f"{name}: server thread did not stop")
         servers.append((name, srv))
     return servers
+
+
+def phase_train(dev):
+    """run_training on the hard-BC annulus at the recipe's batch, with the
+    step-0 gradient check before it and the trained checkpoint served
+    after it.  Returns the kernels' launch counts of the run."""
+    import numpy as np
+    import torch
+
+    from tpinn_torch import problems
+    from tpinn_torch.app.serve import PINNServer
+    from tpinn_torch.core.train import StageSpec, TrainSpec, run_training
+    from tpinn_torch.kernels import adam, mlp_taylor, taylor_vjp
+    from tpinn_torch.utils import artifacts
+
+    problem = problems.with_hard_bc(problems.annulus_laplace())
+    pred, compiled, params, data, lw = loss_setup(
+        problem, annulus_spec(), dev, counts=RECIPE_COUNTS)
+    check(data["x_col"].shape[0] == RECIPE_N, "recipe batch size")
+    got, ref = loss_grads(pred, compiled, params, data, lw, "kernel")
+    generic, _ = loss_grads(pred, compiled, params, data, lw, "generic", ref)
+    err = check_grads("step-0 gradient, kernel vs generic engine", got,
+                      generic, STEP0_RTOL, STEP0_ATOL)
+    print(f"  step-0 gradient of the full loss (N={RECIPE_N}): kernel vs "
+          f"generic engine max abs err {err:.3e} (rtol {STEP0_RTOL}, atol "
+          f"{STEP0_ATOL})")
+
+    spec = TrainSpec(
+        **RECIPE_COUNTS, lw=(0.05, 0.0),
+        stages=(StageSpec(depth=6, width=80, scl=1.0, epsil=1.0,
+                          adam_epochs=TRAIN_ADAM, lbfgs_epochs=TRAIN_LBFGS),
+                StageSpec(depth=6, width=50, act_first="sin",
+                          adam_epochs=TRAIN_ADAM, lbfgs_epochs=TRAIN_LBFGS)),
+        resample_every=100, density_every=100, plateau_every=200,
+        tail_max=50, engine="generic", adam_engine="kernel")
+    out = SMOKE_DIR / "train"
+    shutil.rmtree(out, ignore_errors=True)
+    lines = []
+    mlp_taylor.LAUNCHES = taylor_vjp.LAUNCHES = adam.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = run_training(problem, spec, output_dir=str(out),
+                       log_fn=lines.append, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"taylor2_fwd": mlp_taylor.LAUNCHES,
+                "taylor2_bwd": taylor_vjp.LAUNCHES, "adam": adam.LAUNCHES}
+    for line in lines:
+        print(f"  | {line}")
+    n_adam = [int(m.group(1)) for m in
+              (re.search(r"Adam done \((\d+) steps", ln) for ln in lines) if m]
+    check(len(n_adam) == 2, f"Adam phases logged: {n_adam}")
+    print(f"  run_training: {seconds:.1f} s, Adam steps {n_adam}, launches "
+          f"{launches}")
+    for k, count in launches.items():
+        check(count >= sum(n_adam),
+              f"{k} launched {count} times for {sum(n_adam)} Adam steps")
+
+    h1, h2 = res.stages[0].history, res.stages[1].history
+    drop = h1[0, 0] / h1[n_adam[0] - 1, 0]
+    print(f"  stage 1 loss {h1[0, 0]:.4e} -> {h1[n_adam[0] - 1, 0]:.4e} over "
+          f"Adam ({drop:.1f}x), {h1[-1, 0]:.4e} after L-BFGS; stage 2 "
+          f"{h2[0, 0]:.4e} -> {h2[-1, 0]:.4e}; rel-L2 {res.rel_l2:.4e}")
+    check(drop >= 10.0, f"stage-1 Adam loss drop {drop:.2f}x < 10x")
+    check(h2[-1, 0] < h2[0, 0], "stage-2 loss did not fall")
+    check(res.rel_l2 is not None and math.isfinite(res.rel_l2), "rel-L2")
+
+    # the artifact contract (keys and shapes of tests/test_train_e2e.py)
+    nt = spec.testing_size
+    for name in artifacts.ARTIFACT_NAMES + ["params_stage_1.npz",
+                                            "params_stage_2.npz"]:
+        check((out / name).exists(), f"missing {name}")
+    expect = {"solution_residual_1.npz": {"r", "t_vec", "U", "F"},
+              "solution_residual_2.npz": {"r", "t", "U", "F"},
+              "error_1.npz": {"r", "t", "Error"},
+              "boundary_loss_1.npz": {"loss_xy_l", "loss_xy_r"},
+              "frequency_spectrum.npz": {"freq_x", "freq_t", "log_mag"},
+              "collocation_point_1.npz": {"U", "X_col", "limit"}}
+    for name, keys in expect.items():
+        with np.load(out / name) as d:
+            check(set(d.keys()) == keys, f"{name} keys {sorted(d.keys())}")
+    with np.load(out / "solution_residual_1.npz") as d:
+        check(d["U"].shape == (nt[1], nt[0]), "U shape")
+    with np.load(out / "error_1.npz") as d:
+        check(d["Error"].shape == (nt[1], nt[0]), "Error shape")
+    with np.load(out / "frequency_spectrum.npz") as d:
+        check(d["log_mag"].shape == (nt[1], nt[0]), "log_mag shape")
+    with np.load(out / "collocation_point_1.npz") as d:
+        check(d["X_col"].shape == (RECIPE_N, 2), "X_col shape")
+    with np.load(out / "loss_1.npz") as a, np.load(out / "loss_2.npz") as b:
+        check(a["loss"].shape[1] == 3 + 2 + 1, "loss_info width")
+        check(b["loss"].shape[0] > a["loss"].shape[0], "stage-2 loss rows")
+    print(f"  {len(artifacts.ARTIFACT_NAMES)} artifacts and 2 checkpoints "
+          f"written, keys and shapes checked")
+
+    # the trained chain, served
+    srv = PINNServer(str(out / "params_stage_2.npz"), "annulus_laplace",
+                     device=dev)
+    rng = np.random.default_rng(SEED)
+    pts = np.stack([rng.uniform(0.1, 1.0, 1_000),
+                    rng.uniform(0.0, 2 * np.pi, 1_000)], axis=1).astype(
+                        np.float32)
+    with http_server(srv) as base:
+        u = np.asarray(post(base, "/predict", pts.tolist())["u"])
+    with torch.no_grad():
+        want = res.predict(torch.from_numpy(pts).to(dev))[:, 0].cpu().numpy()
+    err_u = float(np.abs(u - want).max())
+    check(np.allclose(u, want, rtol=1e-5, atol=1e-6),
+          f"served /predict vs trainer's predictor, max err {err_u}")
+    print(f"  params_stage_2.npz served: /predict at 1,000 points equals the "
+          f"trainer's predictor (max err {err_u:.2e})")
+    return launches
+
+
+def event_ms(fn) -> float:
+    """Median device time of ``fn`` between two CUDA events."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(TIMED_RUNS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def alternating_ms(fns) -> dict:
+    """Median synchronised host time of each of two callables, alternated
+    run by run (a, b, b, a, ...) after three warm-up calls each."""
+    names = list(fns)
+    for _ in range(3):
+        for k in names:
+            fns[k]()
+    ts = {k: [] for k in names}
+    for r in range(TIMED_RUNS):
+        for k in (names if r % 2 == 0 else names[::-1]):
+            ts[k].append(sync_ms(fns[k]))
+    return {k: statistics.median(v) for k, v in ts.items()}
+
+
+def adam_step(loss_fn, params, data, lw, ref, update):
+    """One Adam step as the flat-layout phase takes it: loss, the flat
+    gradient in one autograd call, then ``update`` in place."""
+    import torch
+
+    from tpinn_torch.core import optim
+
+    flat, unravel = optim.ravel_tree(params)
+    m, v = torch.zeros_like(flat), torch.zeros_like(flat)
+    lr = torch.full((1,), 1e-3, device=flat.device)
+    t = [0]
+
+    def step():
+        t[0] += 1
+        flat.requires_grad_(True)
+        loss_n, _ = loss_fn(unravel(flat), data, lw, ref)
+        (g,) = torch.autograd.grad(loss_n, flat)
+        with torch.no_grad():
+            update(g, flat.detach(), m, v, lr, t[0])
+
+    return step
+
+
+def phase_timing_train(dev):
+    """The Adam step, kernel engine (B1 + B2 + B3) against the plain
+    engine (plain B1, autograd, plain Adam), and B2 and B3 alone."""
+    import torch
+
+    from tpinn_torch import problems
+    from tpinn_torch.core import loss as loss_mod
+    from tpinn_torch.core import net
+    from tpinn_torch.kernels import adam, taylor_vjp
+
+    out = {}
+    shapes = (("recipe", problems.with_hard_bc(problems.annulus_laplace()),
+               annulus_spec(80), RECIPE_COUNTS),
+              ("bench", problems.annulus_laplace(), annulus_spec(60),
+               BENCH_COUNTS))
+    for label, problem, mspec, counts in shapes:
+        pred, compiled, params, data, lw = loss_setup(problem, mspec, dev,
+                                                      counts=counts)
+        n = data["x_col"].shape[0]
+        with torch.no_grad():
+            ref = loss_mod.make_loss(pred, compiled)(
+                params, data, lw, torch.ones((), device=dev))[1][0]
+        steps = {
+            "kernel": adam_step(loss_mod.make_loss(pred, compiled,
+                                                   engine="kernel"),
+                                params, data, lw, ref, adam.adam_update_flat),
+            "plain": adam_step(loss_mod.make_loss(plain_engine(pred), compiled,
+                                                  engine="fused"),
+                               params, data, lw, ref,
+                               adam.adam_update_reference)}
+        ms = alternating_ms(steps)
+        out[f"step_{label}"] = (ms["kernel"], ms["plain"])
+        print(f"  Adam step, {label} shape ({mspec.depth}x{mspec.width}"
+              f"{' hard-BC' if problem.hard_bc else ' soft-BC'}, N={n}): "
+              f"kernel engine {ms['kernel']:.3f} ms, plain engine "
+              f"{ms['plain']:.3f} ms (synchronised host clock, median of "
+              f"{TIMED_RUNS}, alternating)")
+
+    # B2 alone at the recipe's batch: the raw 6x80 net under the hard-BC
+    # residual's stream set
+    spec, fm = annulus_spec(), net.feature_map_for(("minmax", "periodic"))
+    lo, hi = (0.1, 0.0), (1.0, 2 * math.pi)
+    gen = torch.Generator().manual_seed(SEED)
+    layers = net.init_params(gen, spec, fm, dev)["layers"]
+    z = box_points(gen, RECIPE_N, lo, hi, dev)
+    ct = torch.randn((RECIPE_N, len(IDX5)), generator=gen).to(dev)
+    args = (layers, z, ct, spec, fm, lo, hi, IDX5)
+    k_ms = event_ms(lambda: taylor_vjp.taylor2_backward(*args))
+    p_ms = event_ms(lambda: taylor_vjp.taylor2_backward_reference(*args))
+    n_flop = 3 * 2 * RECIPE_N * len(IDX5) * (5 * 80 * 80)
+    out["taylor2_bwd"] = (k_ms, p_ms)
+    print(f"  taylor2_bwd alone N={RECIPE_N} S=5 6x80: kernel {k_ms:.3f} ms "
+          f"({n_flop / k_ms / 1e9:.2f} TFLOP/s fp32 on the hidden layers), "
+          f"plain {p_ms:.3f} ms (CUDA events, median of {TIMED_RUNS})")
+
+    # B3 alone on the 6x80 net's parameter count
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    vecs = [torch.randn(ADAM_N, generator=gen, device=dev) for _ in range(2)]
+    g, p = vecs
+    m, v = torch.zeros_like(p), torch.zeros_like(p)
+    lr = torch.full((1,), 1e-3, device=dev)
+    k_ms = event_ms(lambda: adam.adam_update_flat(g, p, m, v, lr, 10))
+    p_ms = event_ms(lambda: adam.adam_update_reference(g, p, m, v, lr, 10))
+    out["adam"] = (k_ms, p_ms)
+    print(f"  adam alone n={ADAM_N}: kernel {k_ms * 1e3:.1f} us, plain "
+          f"{p_ms * 1e3:.1f} us (CUDA events, median of {TIMED_RUNS})")
+    return out
 
 
 def phase_timing(dev, gen, servers):
@@ -357,41 +848,59 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
 
     phase("2. build")
-    _build.load("taylor2_fwd")
-    info = _build.BUILD_INFO["taylor2_fwd"]
-    print(f"  built {Path(info['path']).name} in {info['seconds']:.2f} s "
-          f"(cached: {info['cached']})")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas: " + line.strip())
+    _build.load_all(KERNELS)
+    for name in KERNELS:
+        info = _build.BUILD_INFO[name]
+        print(f"  built {Path(info['path']).name} in {info['seconds']:.2f} s "
+              f"(cached: {info['cached']})")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                print("    ptxas: " + line.strip())
 
     gen = torch.Generator().manual_seed(SEED)
-    phase("3. kernel vs plain")
-    worst_abs = phase_kernel_vs_plain(dev, gen)
+    phase("3a. B1 vs plain")
+    err_fwd = phase_kernel_vs_plain(dev, gen)
+    phase("3b. B2 vs plain")
+    err_bwd = phase_b2(dev, gen)
+    phase("3c. B3 vs plain")
+    err_adam = phase_b3(dev)
 
-    phase("4. serve (main path)")
+    phase("4. serve (the first slice's path)")
     ckpts = write_checkpoints(gen)
     mlp_taylor.LAUNCHES = 0
     servers = phase_serve(dev, ckpts)
-    launches = mlp_taylor.LAUNCHES
-    check(launches > 0, "the main path launched kernel B1 no time")
-    print(f"  taylor2_fwd launches during serving: {launches}")
+    serve_launches = mlp_taylor.LAUNCHES
+    check(serve_launches > 0, "serving launched kernel B1 no time")
+    print(f"  taylor2_fwd launches during serving: {serve_launches}")
 
-    phase("5. timing")
+    phase("5. train (this slice's main path)")
+    launches = phase_train(dev)
+
+    phase("6. timing")
     times = phase_timing(dev, gen, servers)
+    times.update(phase_timing_train(dev))
     for n in (65_536, 262_144):
         k_ms, p_ms = times[f"residual_{n}"]
         print(f"  residual N={n}: kernel {k_ms:.3f} ms vs plain {p_ms:.3f} ms "
               f"on {card}")
+    for label in ("recipe", "bench"):
+        k_ms, p_ms = times[f"step_{label}"]
+        print(f"  Adam step ({label}): kernel engine {k_ms:.3f} ms vs plain "
+              f"{p_ms:.3f} ms on {card}")
 
-    k_ms, p_ms = times["kernel_alone"]
     print(f"  card: {card}")
+    rows = (("taylor2_fwd", "taylor2_fwd", "tpinn/kernels/mlp_taylor.py:155",
+             err_fwd, times["kernel_alone"]),
+            ("taylor2_bwd", "taylor2_bwd", "tpinn/kernels/taylor_vjp.py:203",
+             err_bwd, times["taylor2_bwd"]),
+            ("adam_update", "adam", "tpinn/kernels/adam.py:46", err_adam,
+             times["adam"]))
     print(json.dumps({"kernels": [{
-        "name": "taylor2_fwd", "route": "cuda",
-        "source": "tpinn_torch/kernels/csrc/taylor2_fwd.cu",
-        "replaces": "tpinn/kernels/mlp_taylor.py:155",
-        "launches": launches, "max_abs_err": worst_abs,
-        "ms": k_ms, "plain_ms": p_ms}]}))
+        "name": name, "route": "cuda",
+        "source": f"tpinn_torch/kernels/csrc/{src}.cu", "replaces": where,
+        "launches": launches[src], "max_abs_err": err,
+        "ms": k_ms, "plain_ms": p_ms}
+        for name, src, where, err, (k_ms, p_ms) in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,4 +1,5 @@
-"""Kernel B1 and the serving path on a CUDA card (marker ``cuda``).
+"""Kernels B1, B2 and B3 and the serving path on a CUDA card (marker
+``cuda``).
 
 These tests need a card and skip without one.  The file imports torch
 and tpinn_torch only, so it also runs where JAX is not installed; run it
@@ -9,7 +10,9 @@ on a GPU machine with
 (``--noconftest`` because tests/conftest.py imports JAX.)  The kernel is
 held against its plain PyTorch version on the same card: per stream,
 max |kernel - plain| / max |plain| <= 1e-4 (fp32; the two sum in another
-order); residuals rtol 1e-3, atol 1e-4.
+order); residuals rtol 1e-3, atol 1e-4.  B2's gradient, per leaf: max
+|kernel - plain| <= 1e-4 * max |plain| + 1e-6.  B3 against its plain
+version: max |diff| <= 1e-6 * max |plain| per vector.
 """
 
 import math
@@ -20,7 +23,7 @@ import torch
 
 from tpinn_torch.app import serve
 from tpinn_torch.core import net, pde, taylor
-from tpinn_torch.kernels import mlp_taylor
+from tpinn_torch.kernels import adam, mlp_taylor, taylor_vjp
 from tpinn_torch.utils import checkpoint
 
 IDX5 = [(), (0,), (1,), (0, 0), (1, 1)]
@@ -119,3 +122,63 @@ def test_hard_bc_residual_on_card_matches_cpu(cuda_device, tmp_path):
     zero = pde.compile_coord_expr("0", ("r", "t"))
     out = zero(torch.zeros(4, 2, device=cuda_device))
     assert out.device.type == "cuda" and out.shape == (4, 1)
+
+
+def _leaves(params):
+    return [t for layer in params["layers"] for t in (layer["w"], layer["b"])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CASES))
+def test_backward_kernel_matches_plain_on_card(cuda_device, name):
+    params, z, spec, fm, lb, ub, streams = _setup(name, cuda_device)
+    leaves = _leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    ct = torch.randn((z.shape[0], len(streams)),
+                     generator=torch.Generator().manual_seed(3)).to(z.device)
+    before = (mlp_taylor.LAUNCHES, taylor_vjp.LAUNCHES)
+    out = taylor_vjp.kernel_streams(params, z, spec, fm, lb, ub, streams)
+    got = torch.autograd.grad((out * ct).sum(), leaves)
+    again = torch.autograd.grad(
+        (taylor_vjp.kernel_streams(params, z, spec, fm, lb, ub, streams)
+         * ct).sum(), leaves)
+    torch.cuda.synchronize()
+    assert (mlp_taylor.LAUNCHES - before[0],
+            taylor_vjp.LAUNCHES - before[1]) == (2, 2)
+    # the rows of the partial buffer are summed in a fixed order
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    layers = [{k: v.detach() for k, v in layer.items()}
+              for layer in params["layers"]]
+    ref = _leaves({"layers": taylor_vjp.taylor2_backward_reference(
+        layers, z, ct, spec, fm, lb, ub, streams)})
+    for a, b in zip(got, ref):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()) + 1e-6
+    with pytest.raises(ValueError, match="requires_grad"):
+        taylor_vjp.kernel_streams(params, z.clone().requires_grad_(True), spec,
+                                  fm, lb, ub, streams)
+
+
+@pytest.mark.cuda
+def test_adam_kernel_matches_plain_on_card(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    n = 4_099
+    p = torch.randn(n, generator=gen, device=cuda_device)
+    m, v = torch.zeros_like(p), torch.zeros_like(p)
+    lr = torch.full((1,), 1e-2, device=cuda_device)
+    pr, mr, vr, lr_r = p.clone(), m.clone(), v.clone(), lr.clone()
+    before = adam.LAUNCHES
+    for t in range(1, 201):
+        if t == 101:
+            lr.mul_(0.5)
+            lr_r.mul_(0.5)
+        g = torch.randn(n, generator=gen, device=cuda_device)
+        adam.adam_update_flat(g, p, m, v, lr, t)
+        adam.adam_update_reference(g, pr, mr, vr, lr_r, t)
+    torch.cuda.synchronize()
+    assert adam.LAUNCHES == before + 200
+    for a, b in ((p, pr), (m, mr), (v, vr)):
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+    with pytest.raises(TypeError):
+        adam.adam_update_flat(g.double(), p.double(), m.double(), v.double(),
+                              lr.double(), 1)

@@ -1,4 +1,4 @@
-"""Kernel B1 (tpinn_torch.kernels.mlp_taylor) against the JAX Pallas kernel.
+"""Kernels B1, B2 and B3 (tpinn_torch.kernels) against the JAX Pallas kernels.
 
 On the CPU the wrapper runs its plain version; both it and
 ``taylor2_streams_reference`` are held against
@@ -11,6 +11,15 @@ kernel's dots are a three-pass bf16 split (dot_f32) whose own error
 against JAX's f32 engine is close to that atol: the 3-coordinate case
 runs at width 16, where it stays inside (at width 24 one stream value of
 the Pallas kernel is 1.1e-5 off JAX's f32 engine).
+
+B2's plain version ``taylor2_backward_reference`` is held against
+``tpinn.kernels.taylor_vjp.taylor2_backward_pallas`` in interpret mode with
+the JAX tests' tolerance (rtol 2e-3, atol 2e-5), and against autograd
+through ``taylor.taylor2_mlp`` in float64 (rtol 1e-10).  The autograd
+Function (B1 forward, B2 backward) is checked with B1's launcher replaced
+by a gradient-less call, as the CUDA launch is.  B3's plain version is
+held against ``optax.adam`` (rtol 1e-5, atol 1e-7, as
+tests/test_kernels.py holds the Pallas Adam).
 
 The CUDA kernel itself runs only on a card: its tests are in
 tests/test_torch_cuda.py (marked ``cuda``; they skip without a card).
@@ -28,7 +37,10 @@ from tpinn.core import taylor as jtaylor
 from tpinn.kernels import mlp_taylor as jmt
 from tpinn_torch.core import net as tnet
 from tpinn_torch.core import pde as tpde
+from tpinn_torch.core import taylor as ttaylor
+from tpinn_torch.kernels import adam as tadam
 from tpinn_torch.kernels import mlp_taylor as tmt
+from tpinn_torch.kernels import taylor_vjp as tvjp
 from tpinn_torch.utils.convert import params_from_numpy
 
 RTOL, ATOL = 1e-4, 1e-5
@@ -173,3 +185,313 @@ def test_tile_points_fits_shared_memory():
         assert 2 * s * tp * ((w + 3) // 4 * 4) * 4 <= tmt.SMEM_LIMIT
     with pytest.raises(ValueError):
         tmt.tile_points(10, 4096)
+
+
+# ---------------------------------------------------------------------------
+# Kernel B2 (taylor_vjp) and its autograd Function
+# ---------------------------------------------------------------------------
+
+B2_CASES = ("tanh-minmax-periodic", "sin-minmax-minmax", "pad_to-3",
+            "partial-block")
+
+
+def _leaves(params):
+    return [t for layer in params["layers"] for t in (layer["w"], layer["b"])]
+
+
+def _ct(c, seed=5):
+    """A cotangent on the stream columns, scaled by 1/N as the gradient of
+    a mean over the points is (the regime of tests/test_kernels.py)."""
+    n, s = len(c["z"]), len(c["streams"])
+    return (np.random.default_rng(seed).standard_normal((n, s)) / n).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("name", B2_CASES)
+def test_backward_plain_matches_pallas(name):
+    from tpinn.kernels import taylor_vjp as jvjp
+
+    c = _case(name)
+    ct = _ct(c)
+    want = jvjp.taylor2_backward_pallas(
+        c["p_j"]["layers"], jnp.asarray(c["z"]), jnp.asarray(ct), c["spec_j"],
+        c["fm_j"], c["lb"], c["ub"], c["streams"], block=c["block"],
+        interpret=True)
+    args = (c["p_t"]["layers"], torch.from_numpy(c["z"]), torch.from_numpy(ct),
+            c["spec_t"], c["fm_t"], c["lb"], c["ub"], c["streams"])
+    before = tvjp.LAUNCHES
+    got = tvjp.taylor2_backward(*args)
+    assert tvjp.LAUNCHES == before       # a CPU tensor launches no kernel
+    ref = tvjp.taylor2_backward_reference(*args)
+    for g_layer, r_layer, w_layer in zip(got, ref, want):
+        for k in ("w", "b"):
+            assert torch.equal(g_layer[k], r_layer[k])
+            np.testing.assert_allclose(g_layer[k].numpy(),
+                                       np.asarray(w_layer[k]), rtol=2e-3,
+                                       atol=2e-5)
+
+
+def _f64_case(name):
+    c = _case(name)
+    p64 = params_from_numpy(c["p_j"], "cpu", torch.float64)
+    z64 = torch.from_numpy(c["z"]).double()
+    lb = torch.tensor(c["lb"], dtype=torch.float64)
+    ub = torch.tensor(c["ub"], dtype=torch.float64)
+    return c, p64, z64, lb, ub
+
+
+@pytest.mark.parametrize("name", ["tanh-minmax-periodic", "sin-minmax-minmax",
+                                  "partial-block", "3-coordinates"])
+def test_backward_plain_matches_autograd_f64(name):
+    c, p64, z64, lb, ub = _f64_case(name)
+    ct = torch.from_numpy(_ct(c)).double()
+    leaves = [t.requires_grad_(True) for t in _leaves(p64)]
+    parts = ttaylor.taylor2_mlp(p64, z64, c["spec_t"], c["fm_t"], lb, ub,
+                                c["streams"])
+    cols = torch.cat([parts[st] for st in c["streams"]], dim=1)
+    want = torch.autograd.grad((cols * ct).sum(), leaves)
+    layers = [{k: v.detach() for k, v in layer.items()}
+              for layer in p64["layers"]]
+    got = _leaves({"layers": tvjp.taylor2_backward_reference(
+        layers, z64, ct, c["spec_t"], c["fm_t"], c["lb"], c["ub"],
+        c["streams"])})
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-10,
+                                   atol=1e-12)
+
+
+def _hard_fns():
+    lift = tpde.compile_coord_expr("(1 - r)/0.9", ("r", "t"))
+    bubble = tpde.compile_coord_expr("(r - 0.1)*(1 - r)", ("r", "t"))
+    return lift, bubble
+
+
+def test_backward_plain_under_hard_bc_product_rule_f64():
+    """The residual-MSE gradient of a hard-BC net: the cotangent reaches
+    the raw net's stream columns through the product rule, B2's plain
+    version turns it into parameter gradients; autograd through
+    taylor2_mlp under the same ansatz agrees to rtol 1e-10."""
+    c, p64, z64, lb, ub = _f64_case("tanh-minmax-periodic")
+    lift, bubble = _hard_fns()
+    compiled = tpde.compile_pde(LAPLACE, ("r", "t"))
+    streams = c["streams"]
+    need = sorted({(), (0,), (1,)} | set(compiled.indices),
+                  key=lambda t: (len(t), t))
+    layers = [{k: v.detach() for k, v in layer.items()}
+              for layer in p64["layers"]]
+    cols = torch.cat([ttaylor.taylor2_mlp(
+        {"layers": layers}, z64, c["spec_t"], c["fm_t"], lb, ub,
+        streams)[st] for st in streams], dim=1).requires_grad_(True)
+
+    def loss_of(raw_partials):
+        parts = tnet.hard_bc_partials(raw_partials, lift, bubble)(
+            None, z64, compiled.indices)
+        return torch.mean(compiled.evaluate(z64, parts) ** 2)
+
+    from_cols = lambda p, z, idx: {st: cols[:, k:k + 1]
+                                   for k, st in enumerate(streams)}
+    (ct,) = torch.autograd.grad(loss_of(from_cols), cols)
+    got = _leaves({"layers": tvjp.taylor2_backward_reference(
+        layers, z64, ct, c["spec_t"], c["fm_t"], c["lb"], c["ub"], streams)})
+
+    leaves = [t.requires_grad_(True) for t in _leaves(p64)]
+    via_autograd = lambda p, z, idx: ttaylor.taylor2_mlp(
+        p64, z, c["spec_t"], c["fm_t"], lb, ub, need)
+    want = torch.autograd.grad(loss_of(via_autograd), leaves)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-10,
+                                   atol=1e-12)
+
+
+@pytest.fixture
+def gradless_b1(monkeypatch):
+    """B1's launcher replaced by a no-grad plain call: an output with no
+    autograd node, as the CUDA launch gives.  Counts its calls."""
+    calls = []
+    plain = tmt.taylor2_streams_reference
+
+    def launch(*args):
+        with torch.no_grad():
+            out = plain(*args)
+        assert out.grad_fn is None and not out.requires_grad
+        calls.append(out.shape)
+        return out
+
+    monkeypatch.setattr(tmt, "taylor2_streams", launch)
+    return calls
+
+
+def test_autograd_function_with_gradless_forward(gradless_b1):
+    c = _case("tanh-minmax-periodic")
+    zt = torch.from_numpy(c["z"])
+    ct = torch.from_numpy(_ct(c))
+    p = params_from_numpy(c["p_j"], "cpu")
+    leaves = [t.requires_grad_(True) for t in _leaves(p)]
+    out = tvjp.kernel_streams(p, zt, c["spec_t"], c["fm_t"], c["lb"], c["ub"],
+                              c["streams"])
+    assert gradless_b1 == [out.shape] and out.grad_fn is not None
+    got = torch.autograd.grad((out * ct).sum(), leaves)
+    parts = ttaylor.taylor2_mlp(p, zt, c["spec_t"], c["fm_t"],
+                                torch.tensor(c["lb"]), torch.tensor(c["ub"]),
+                                c["streams"])
+    want = torch.autograd.grad(
+        (torch.cat([parts[st] for st in c["streams"]], 1) * ct).sum(), leaves)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-3, atol=2e-5)
+    # no silent zero cotangent for the points, and no forward mode
+    with pytest.raises(ValueError, match="requires_grad"):
+        tvjp.kernel_streams(p, zt.clone().requires_grad_(True), c["spec_t"],
+                            c["fm_t"], c["lb"], c["ub"], c["streams"])
+    with pytest.raises(RuntimeError):
+        torch.func.jvp(
+            lambda z: tvjp.kernel_streams(p, z, c["spec_t"], c["fm_t"],
+                                          c["lb"], c["ub"], c["streams"]),
+            (zt,), (torch.ones_like(zt),))
+
+
+def test_residual_gradient_on_the_card_route(gradless_b1, monkeypatch):
+    """Repair: a float32 residual on the card's route (B1 with no autograd
+    node) still carries the parameter gradient of tpinn's kernel engine,
+    through the hard-BC product rule."""
+    from tpinn.core import net as jnet_mod
+    from tpinn.kernels.taylor_vjp import make_kernel_partials
+
+    monkeypatch.setattr(ttaylor, "_kernel_route", lambda z: True)
+    c = _case("tanh-minmax-periodic")
+    zt = torch.from_numpy(c["z"])
+    lift, bubble = _hard_fns()
+    pred = tnet.wrap_hard_bc(
+        tnet.make_predictor(c["spec_t"], c["fm_t"], torch.tensor(c["lb"]),
+                            torch.tensor(c["ub"])), lift, bubble)
+    compiled = tpde.compile_pde(LAPLACE, ("r", "t"))
+    p = params_from_numpy(c["p_j"], "cpu")
+    leaves = [t.requires_grad_(True) for t in _leaves(p)]
+    f = compiled.residual_fast(pred, p, zt)
+    assert gradless_b1, "the residual did not take B1's route"
+    got = torch.autograd.grad(torch.mean(f ** 2), leaves)
+
+    cj = jpde.compile_pde(LAPLACE, ("r", "t"))
+    lift_j = jpde.compile_coord_expr("(1 - r)/0.9", ("r", "t"))
+    bubble_j = jpde.compile_coord_expr("(r - 0.1)*(1 - r)", ("r", "t"))
+    kp = jnet_mod.hard_bc_partials(
+        make_kernel_partials(c["spec_j"], c["fm_j"], c["lb"], c["ub"],
+                             ((), (0,), (1,), (0, 0), (1, 1)), block=128,
+                             interpret=True), lift_j, bubble_j)
+    z = jnp.asarray(c["z"])
+    want = jax.grad(lambda q: jnp.mean(cj.evaluate(
+        z, kp(q, z, cj.indices)) ** 2))(c["p_j"])
+    want = [a for layer in want["layers"] for a in (layer["w"], layer["b"])]
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-3,
+                                   atol=3e-5)
+
+
+def test_float64_residual_fast_matches_tpinn():
+    """Repair: a float64 residual goes to the generic engine (tpinn's f64
+    route) instead of raising in B1's float32 check."""
+    from tpinn.utils.x64 import force_x64
+
+    c = _case("tanh-minmax-periodic")
+    lift, bubble = _hard_fns()
+    pred_t = tnet.wrap_hard_bc(
+        tnet.make_predictor(c["spec_t"], c["fm_t"],
+                            torch.tensor(c["lb"], dtype=torch.float64),
+                            torch.tensor(c["ub"], dtype=torch.float64)),
+        lift, bubble)
+    p64 = params_from_numpy(c["p_j"], "cpu", torch.float64)
+    z64 = torch.from_numpy(c["z"]).double()
+    got = tpde.compile_pde(LAPLACE, ("r", "t")).residual_fast(pred_t, p64, z64)
+    assert got.dtype == torch.float64
+    with force_x64():
+        pj = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64),
+                                    c["p_j"])
+        pred_j = jnet.wrap_hard_bc(
+            jnet.make_predictor(c["spec_j"], c["fm_j"],
+                                jnp.asarray(c["lb"], jnp.float64),
+                                jnp.asarray(c["ub"], jnp.float64)),
+            jpde.compile_coord_expr("(1 - r)/0.9", ("r", "t")),
+            jpde.compile_coord_expr("(r - 0.1)*(1 - r)", ("r", "t")))
+        want = np.asarray(jpde.compile_pde(LAPLACE, ("r", "t")).residual_fast(
+            pred_j, pj, jnp.asarray(c["z"], jnp.float64)))
+    assert want.dtype == np.float64
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-10, atol=1e-12)
+
+
+def test_backward_refuses_out_of_scope():
+    c = _case("tanh-minmax-periodic")
+    zt = torch.from_numpy(c["z"])
+    layers = c["p_t"]["layers"]
+    rest = (c["spec_t"], c["fm_t"], c["lb"], c["ub"], c["streams"])
+    with pytest.raises(ValueError, match="ct must be"):
+        tvjp.taylor2_backward(layers, zt, torch.zeros(len(zt), 2), *rest)
+    with pytest.raises(TypeError):
+        tvjp.taylor2_backward(layers, zt.double(),
+                              torch.zeros(len(zt), len(c["streams"])), *rest)
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        tvjp.taylor2_backward(layers, zt.to("meta"),
+                              torch.zeros(len(zt), len(c["streams"])), *rest)
+    assert tvjp.tiling(5, 80) == (16, 2)      # 78,080 B: two blocks per SM
+    with pytest.raises(ValueError, match="shared memory"):
+        tvjp.tiling(10, 4096)
+
+
+# ---------------------------------------------------------------------------
+# Kernel B3 (adam)
+# ---------------------------------------------------------------------------
+
+
+def test_adam_plain_matches_optax_with_lr_change():
+    import optax
+
+    n, steps = 1_001, 300
+    rng = np.random.default_rng(0)
+    p0 = rng.standard_normal(n).astype(np.float32)
+    grads = rng.standard_normal((steps, n)).astype(np.float32)
+    opt = optax.inject_hyperparams(optax.adam)(learning_rate=1e-3)
+    p_ox = jnp.asarray(p0)
+    state = opt.init(p_ox)
+    p = torch.from_numpy(p0.copy())
+    m, v = torch.zeros(n), torch.zeros(n)
+    lr = torch.full((1,), 1e-3)
+    before = tadam.LAUNCHES
+    for t in range(1, steps + 1):
+        if t == steps // 2 + 1:
+            lr.mul_(0.5)
+            state.hyperparams["learning_rate"] = jnp.asarray(5e-4)
+        upd, state = opt.update(jnp.asarray(grads[t - 1]), state)
+        p_ox = optax.apply_updates(p_ox, upd)
+        out = tadam.adam_update_flat(torch.from_numpy(grads[t - 1]), p, m, v,
+                                     lr, t)
+        assert out[0] is p             # in place
+    assert tadam.LAUNCHES == before
+    # atol 1e-6: over 300 steps the parameter picks up one-ulp differences
+    # (XLA fuses the final multiply-subtract; torch rounds each op), a
+    # random walk of a few 1e-7 that stays put when p crosses zero
+    np.testing.assert_allclose(p.numpy(), np.asarray(p_ox), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(m.numpy(), np.asarray(state.inner_state[0].mu),
+                               rtol=1e-5, atol=1e-7)
+
+
+def test_adam_plain_matches_pallas_and_refuses():
+    from tpinn.kernels import adam as jadam
+
+    n = 777
+    g = np.full(n, 0.1, np.float32)
+    p2, _, _ = jadam.adam_update_flat(jnp.asarray(g), jnp.zeros(n),
+                                      jnp.zeros(n), jnp.zeros(n), 0.01, 1,
+                                      block=256, interpret=True)
+    p, m, v = torch.zeros(n), torch.zeros(n), torch.zeros(n)
+    tadam.adam_update_flat(torch.from_numpy(g), p, m, v, torch.full((1,), 0.01),
+                           1)
+    # the Pallas kernel takes 1 - beta in float64 (Python floats), the port
+    # in float32 as tpinn's optax phase does: 6.6e-6 apart at step 1
+    np.testing.assert_allclose(p.numpy(), np.asarray(p2), rtol=1e-5)
+    assert float(p[0]) < 0 and bool((p == p[0]).all())
+    lr = torch.full((1,), 0.01)
+    with pytest.raises(ValueError, match="1-based"):
+        tadam.adam_update_flat(torch.from_numpy(g), p, m, v, lr, 0)
+    with pytest.raises(ValueError, match="lr must be"):
+        tadam.adam_update_flat(torch.from_numpy(g), p, m, v, 0.01 * lr[0], 1)
+    with pytest.raises(ValueError, match="contiguous 1-D"):
+        tadam.adam_update_flat(torch.zeros(n, 1), p, m, v, lr, 1)

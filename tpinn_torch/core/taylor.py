@@ -14,12 +14,16 @@ version that kernel B1 (tpinn_torch.kernels.mlp_taylor) is held against.
 
 Engine dispatch differs from the JAX package on purpose: ``tpinn`` keeps
 the generic nested-jvp engine as its default (``PREFER_FUSED = False``, a
-choice measured on a TPU).  Here dispatch goes by structure: a predictor
-whose raw net is the plain dense family with scalar output and feature
-kinds in {minmax, periodic, identity} advertises ``tpinn_partials``, which
-runs kernel B1 on a CUDA tensor and its plain version on a CPU tensor;
-``fast_partials`` takes it for order ≤ 2.  Everything else goes to the
-generic ``torch.func.jvp`` engine (tpinn_torch.core.deriv).
+choice measured on a TPU).  Here dispatch goes by structure and dtype: a
+predictor whose raw net is the plain dense family with scalar output and
+feature kinds in {minmax, periodic, identity} advertises
+``tpinn_partials``; ``fast_partials`` takes it for order ≤ 2 on float32
+points.  On a CUDA tensor it runs kernel B1, differentiable in the
+parameters through kernel B2 (tpinn_torch.kernels.taylor_vjp); on a CPU
+tensor it runs B1's plain version, which autograd differentiates.
+Float64 points (the f64 evaluation, an f64 L-BFGS) and everything else go
+to the generic ``torch.func.jvp`` engine (tpinn_torch.core.deriv), as
+``tpinn`` computes them.
 
 Activation derivative table:
     tanh:  φ' = 1 − a²          φ'' = −2·a·(1 − a²)
@@ -182,18 +186,29 @@ def taylor2_mlp(
 # ---------------------------------------------------------------------------
 
 
+def _kernel_route(z: Tensor) -> bool:
+    """Whether the u-partials of ``z`` go through the kernels' autograd
+    Function (B1 forward, B2 backward): float32 points on a CUDA card."""
+    return z.device.type == "cuda" and z.dtype == torch.float32
+
+
 def attach_mlp_meta(predictor, spec: MLPSpec, fm: FeatureMap, lb, ub):
     """Tag a predictor closure with its structure; when kernel B1 takes the
     net (mlp_taylor.supports), ``predictor.tpinn_partials(params, z,
-    indices)`` computes the u-partials with it (its plain version on a
-    CPU tensor)."""
-    from tpinn_torch.kernels import mlp_taylor  # late: kernels import core
+    indices)`` computes the u-partials with it: on a float32 CUDA tensor
+    through the B1/B2 autograd Function, on a CPU tensor with B1's plain
+    version."""
+    # late imports: the kernels import core
+    from tpinn_torch.kernels import mlp_taylor, taylor_vjp
 
     # host copies of the bounds (exact fp32 values): the kernel takes them
     # as launch arguments, so a CUDA call needs no device-to-host read
     bounds_host = (tuple(lb.tolist()), tuple(ub.tolist()))
 
     def tpinn_partials(params, z, indices):
+        if _kernel_route(z):
+            return taylor_vjp.kernel_partials(
+                params, z, spec, fm, *bounds_host, indices)
         return mlp_taylor.taylor2_mlp_kernel(
             params, z, spec, fm, *bounds_host, indices)
 
@@ -241,11 +256,12 @@ def attach_frozen_meta(frozen, predictor, params):
 
 def fast_partials(predictor, params, z, indices, max_order: int):
     """Engine dispatch for the residual path: the predictor's structured
-    partials (kernel B1) when it advertises them and the order is ≤ 2, the
-    generic nested-jvp engine otherwise."""
+    partials (kernels B1/B2) when it advertises them, the order is ≤ 2 and
+    the points are float32; the generic nested-jvp engine otherwise (f64
+    points included: the kernels compute in float32)."""
     from tpinn_torch.core import deriv
 
     fn = getattr(predictor, "tpinn_partials", None)
-    if fn is not None and max_order <= 2:
+    if fn is not None and max_order <= 2 and z.dtype == torch.float32:
         return fn(params, z, indices)
     return deriv.partials(lambda zz: predictor(params, zz), z, indices)

@@ -5,7 +5,8 @@ Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
 ``build/kernels/`` at the root of the checkout, named by a hash of the
 source and the flags: a changed source rebuilds, an unchanged one loads
 the library already there.  Nothing is built at import; the first call
-that launches a kernel builds it.
+that launches a kernel builds it.  ``load_all`` builds several sources at
+once, one nvcc process each.
 """
 
 from __future__ import annotations
@@ -17,8 +18,9 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -30,7 +32,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()               # guards _NAME_LOCKS
+_NAME_LOCKS: Dict[str, threading.Lock] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # name -> {"path", "seconds", "cached", "log"} of the build that loaded it
 BUILD_INFO: Dict[str, dict] = {}
@@ -52,6 +55,8 @@ def _nvcc() -> str:
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu`` as a ctypes library."""
     with _LOCK:
+        lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if name in _LIBS:
             return _LIBS[name]
         src = CSRC / f"{name}.cu"
@@ -79,3 +84,10 @@ def load(name: str) -> ctypes.CDLL:
                             "seconds": time.perf_counter() - t0}
         _LIBS[name] = lib
         return lib
+
+
+def load_all(names: Sequence[str]) -> None:
+    """Build and load several sources concurrently (one nvcc each)."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        for fut in [pool.submit(load, n) for n in names]:
+            fut.result()

@@ -1,7 +1,8 @@
 """Problem presets with analytic oracles (port of ``tpinn.problems``).
 
 Ported so far: ``annulus_laplace``, the flagship problem, with its torch
-oracle and hard-BC ansatz.  The other presets, ``RECIPES`` and the system
+oracle and hard-BC ansatz, and ``poisson_1d``, the 1-D problem of the
+end-to-end training tests.  The other presets, ``RECIPES`` and the system
 presets are ROADMAP.md Queue A item 12.
 """
 
@@ -16,10 +17,10 @@ from tpinn_torch.core import net, sample
 from tpinn_torch.core.train import ProblemSpec
 
 __all__ = ["PRESETS", "HARD_BC", "get_problem", "with_hard_bc",
-           "annulus_laplace"]
+           "annulus_laplace", "poisson_1d"]
 
 # presets of tpinn.problems that are not ported yet
-_LATER = ("poisson_1d", "burgers_1d", "burgers_shock", "poisson_2d",
+_LATER = ("burgers_1d", "burgers_shock", "poisson_2d",
           "heat_2d", "helmholtz_2d", "poisson_3d", "convection_1d",
           "lshape_laplace", "allen_cahn", "wave_1d", "kdv_1d")
 
@@ -45,8 +46,25 @@ def annulus_laplace() -> ProblemSpec:
     )
 
 
+def poisson_1d() -> ProblemSpec:
+    """−u″ = f on [0,1], u(0)=u(1)=0, manufactured u = sin(πx)."""
+    return ProblemSpec(
+        name="poisson_1d",
+        equation="u_xx + pi**2*sin(pi*x)",
+        coords=("x",),
+        lb=(0.0,),
+        ub=(1.0,),
+        bc_groups=(
+            sample.BCGroup(lo=(0.0,), hi=(0.0,), value=0.0),
+            sample.BCGroup(lo=(1.0,), hi=(1.0,), value=0.0),
+        ),
+        exact=lambda z: torch.sin(math.pi * z[:, 0:1]),
+    )
+
+
 PRESETS = {
     "annulus_laplace": annulus_laplace,
+    "poisson_1d": poisson_1d,
 }
 
 

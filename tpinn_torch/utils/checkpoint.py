@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 
-def _atomic_savez(path, **arrays) -> None:
+def atomic_savez(path, **arrays) -> None:
     """np.savez to a temp file in the same directory, then atomic rename."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
@@ -53,7 +53,7 @@ def save_pytree(path, tree, meta: Optional[Dict[str, Any]] = None) -> None:
     arrays["__meta__"] = np.frombuffer(
         json.dumps(meta or {}).encode(), dtype=np.uint8
     )
-    _atomic_savez(path, **arrays)
+    atomic_savez(path, **arrays)
 
 
 def load_pytree(path, like) -> Tuple[Any, Dict[str, Any]]:
