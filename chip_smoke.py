@@ -14,14 +14,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
 3. Kernel vs plain:
    a. B1 against its plain PyTorch version and against the generic
       torch.func.jvp engine, per stream, on the 6x80 annulus net (N =
-      262,144 and a ragged 1,077), a sin-first net with pad_to=3, and a
-      3-coordinate net.
+      262,144, a ragged 1,077 and the 202,500 points of the recipe's
+      L-BFGS grid), a sin-first net with pad_to=3, and a 3-coordinate net.
    b. B2 through the autograd Function (B1 forward, B2 backward) against
       B2's plain version on the same cotangent and against autograd
       through the plain Taylor-2 recurrence, per leaf, on the 6x80
-      annulus net at the recipe's batch (46,000) and a ragged 1,077, the
-      pad_to=3 net and the 3-coordinate net; the same under the hard-BC
-      product rule; points that require a gradient must be refused.
+      annulus net at the recipe's batch (46,000), a ragged 1,077 and the
+      recipe's L-BFGS grid (450^2 = 202,500), the pad_to=3 net and the
+      3-coordinate net; the same under the hard-BC product rule at those
+      three sizes; points that require a gradient must be refused.
    c. B3 against its plain version over 1,000 steps, with a learning-rate
       change half-way, on n = 32,801 (the 6x80 net on 3 features) and an
       odd n.
@@ -33,7 +34,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the plain-version residual and the exact hard-BC boundary values.  B1's
    launch count is reset before this phase and must grow with every
    /residual request.
-5. Train (this slice's main path): first, at step 0, the kernel-engine
+5. Train (the second slice's path): first, at step 0, the kernel-engine
    gradient of the full loss against the generic engine's.  Then
    run_training on the hard-BC annulus at the recipe's batch: stage 1
    6x80 tanh, stage 2 6x50 sin composed, about 300 Adam steps each
@@ -41,13 +42,33 @@ Phases, each of which raises on failure (the script then exits non-zero):
    after, loss drops, rel-L2, the 11 artifacts and the checkpoints
    checked; the stage-2 checkpoint is served and /predict checked
    against the trainer's predictor.
+5b. Recipe (this slice's main path): get_recipe("annulus_laplace") as
+   written — 6x80, the 46,000-point batch, lbfgs_grid=450,
+   lbfgs_rounds=3, lsq_polish="auto", deflation="full",
+   adam_precision="default" — with only the budgets cut, through
+   run_training on the card: Adam through B1 + B2 + B3 (launch counts
+   reset before, read after), three L-BFGS rounds on the 202,500-point
+   grid each followed by the exact float64 last-layer solve (objective
+   post <= pre, applied), the float64 evaluation, the Galerkin defect
+   correction (kind, residual drop, modes, rel-L2 before and after), the
+   checkpoint whose meta carries it, and the served /predict of that
+   checkpoint against the trainer's corrected predictor and against the
+   same checkpoint served without its correction; its served /residual
+   against the residual of the trainer's corrected predictor, with the
+   engine that answered it (B1's launch count over the request).
 6. Timing (medians of synchronised runs): B1 alone and inside the
    residual at the serving shapes; the Adam step with the kernel engine
    against the plain engine at the recipe's shape and at bench.py's; B2
-   and B3 alone against their plain versions.
+   and B3 alone against their plain versions; B3 and the one PyTorch call
+   that computes the same update (torch._fused_adam_) alone and in a
+   queue of 100 launches behind a long kernel, which reads the device
+   time per launch apart from the host call.
 
-The line before the last is a JSON object describing the kernels; the
-last line is {"ok": true, "device": {...}}.
+The line before the last is a JSON object describing the kernels (each
+with its launches on this slice's main path, its time, its plain
+version's, the card's bound for the same work and, where one PyTorch
+call computes the same function, that call's time); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -91,6 +112,17 @@ ADAM_N = 32_801     # parameters of the 6x80 net on 3 features
 ADAM_STEPS = 1000
 TRAIN_ADAM = 300    # Adam steps per stage in the training phase
 TRAIN_LBFGS = 30    # lbfgs_epochs per stage (max_iters = epochs / 3)
+RECIPE_ADAM = 300   # phase 5b: adam_epochs of the recipe, cut from 8,000
+# phase 5b: lbfgs_epochs, cut from 8,000 (100 iterations per round).  270
+# also passed every check, but its correction's resid_drop of 0.783 lay
+# close to the 0.8 above which polish.galerkin_defect keeps no correction
+RECIPE_LBFGS = 900
+RECIPE_GRID_N = 450 * 450   # points of the recipe's lbfgs_grid
+QUEUED = 100        # back-to-back launches timed behind a long kernel
+# the card's published peaks (H100 SXM data sheet): fp32 outside the tensor
+# cores, HBM3 bandwidth
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
 
 
 def check(ok: bool, what: str) -> None:
@@ -161,6 +193,8 @@ def kernel_cases():
          IDX5, 262_144),
         ("annulus 6x80 tanh ragged", annulus, annulus_fm, (0.1, 0.0),
          (1.0, two_pi), IDX5, 1_077),
+        ("annulus 6x80 tanh, the recipe's L-BFGS grid", annulus, annulus_fm,
+         (0.1, 0.0), (1.0, two_pi), IDX5, RECIPE_GRID_N),
         ("sin first, minmax x2, pad_to=3",
          net.MLPSpec(depth=6, width=64, act_first="sin", scl=3.0, epsil=0.5),
          net.feature_map_for(("minmax", "minmax"), pad_to=3),
@@ -239,7 +273,8 @@ def phase_b2(dev, gen):
     from tpinn_torch.core import net, taylor
     from tpinn_torch.kernels import mlp_taylor, taylor_vjp
 
-    sizes = (RECIPE_N, 1_077, 16_384, 8_192)   # per case of kernel_cases()
+    # per case of kernel_cases()
+    sizes = (RECIPE_N, 1_077, RECIPE_GRID_N, 16_384, 8_192)
     worst_abs = 0.0
     for n, (name, spec, fm, lo, hi, streams, _) in zip(sizes, kernel_cases()):
         params = net.init_params(gen, spec, fm, dev)
@@ -290,7 +325,7 @@ def phase_b2(dev, gen):
     from tpinn_torch import problems
 
     problem = problems.with_hard_bc(problems.annulus_laplace())
-    for n in (RECIPE_N, 1_077):
+    for n in (RECIPE_N, 1_077, RECIPE_GRID_N):
         pred, compiled, params, data, lw = loss_setup(
             problem, annulus_spec(), dev, col_only=n)
         got, ref = loss_grads(pred, compiled, params, data, lw, "kernel")
@@ -646,6 +681,181 @@ def phase_train(dev):
     return launches
 
 
+def phase_recipe(dev, card, adam_epochs=RECIPE_ADAM,
+                 lbfgs_epochs=RECIPE_LBFGS, tail_max=50):
+    """The annulus_laplace recipe with its budgets cut, end to end: Adam
+    through the kernels, three L-BFGS rounds each followed by the exact
+    last-layer solve, the float64 evaluation, the Galerkin defect
+    correction, the checkpoint with the correction in its meta, served.
+    Returns the kernels' launch counts of the run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tpinn_torch import problems
+    from tpinn_torch.app.serve import PINNServer
+    from tpinn_torch.core import polish
+    from tpinn_torch.core.train import run_training
+    from tpinn_torch.kernels import adam, mlp_taylor, taylor_vjp
+    from tpinn_torch.utils import checkpoint
+
+    problem, spec = problems.get_recipe("annulus_laplace")
+    stage = spec.stages[0]
+    check((stage.depth, stage.width, stage.lbfgs_grid, stage.lbfgs_rounds)
+          == (6, 80, 450, 3) and spec.lsq_polish == "auto"
+          and spec.deflation == "full" and spec.adam_precision == "default"
+          and spec.n_col + spec.n_band + spec.n_adaptive + 2 * spec.n_bd
+          == RECIPE_N, "the annulus_laplace recipe is not the flagship's")
+    # only the budgets are cut: Adam and L-BFGS epochs, and the Adam tail
+    # (up to tail_max further steps while the loss still improves)
+    spec = dataclasses.replace(
+        spec, tail_max=tail_max,
+        stages=(dataclasses.replace(stage, adam_epochs=adam_epochs,
+                                    lbfgs_epochs=lbfgs_epochs),))
+    out = SMOKE_DIR / "recipe"
+    shutil.rmtree(out, ignore_errors=True)
+    lines = []
+    tf32_before = torch.backends.cuda.matmul.allow_tf32
+    mlp_taylor.LAUNCHES = taylor_vjp.LAUNCHES = adam.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = run_training(problem, spec, output_dir=str(out),
+                       log_fn=lines.append, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"taylor2_fwd": mlp_taylor.LAUNCHES,
+                "taylor2_bwd": taylor_vjp.LAUNCHES, "adam": adam.LAUNCHES}
+    for line in lines:
+        print(f"  | {line}")
+    check(torch.backends.cuda.matmul.allow_tf32 == tf32_before,
+          "adam_precision leaked out of the Adam phase")
+    n_adam = [int(m.group(1)) for m in
+              (re.search(r"Adam done \((\d+) steps", ln) for ln in lines) if m]
+    check(len(n_adam) == 1 and n_adam[0] >= adam_epochs,
+          f"Adam phase logged: {n_adam}")
+    print(f"  run_training(get_recipe('annulus_laplace'), budgets "
+          f"{adam_epochs} Adam steps + tail and {lbfgs_epochs} L-BFGS "
+          f"epochs): {seconds:.1f} s, Adam steps {n_adam[0]}, launches "
+          f"{launches}")
+    for k, count in launches.items():
+        check(count >= n_adam[0],
+              f"{k} launched {count} times for {n_adam[0]} Adam steps")
+
+    # the exact last-layer solve after every L-BFGS round
+    polished = [re.search(r"lsq polish objective (\S+) -> (\S+)( \(not "
+                          r"applied\))? in (\S+) s", ln) for ln in lines]
+    polished = [m for m in polished if m]
+    check(len(polished) == stage.lbfgs_rounds,
+          f"{len(polished)} lsq polish lines for {stage.lbfgs_rounds} rounds")
+    for k, m in enumerate(polished):
+        obj0, obj1, secs = (float(m.group(k)) for k in (1, 2, 4))
+        check(m.group(3) is None and obj1 <= obj0,
+              f"round {k + 1}: lsq polish {obj0} -> {obj1} {m.group(3) or ''}")
+        print(f"  round {k + 1}: last-layer solve on the 202,500-point grid, "
+              f"objective {obj0:.4e} -> {obj1:.4e}, {secs:.2f} s wall on "
+              f"{card}")
+
+    # the correction: kind, what it absorbed, accuracy before and after
+    _, meta = checkpoint.load_pytree(out / "params_stage_1.npz",
+                                     res.stages[0].params)
+    defl = meta.get("deflation")
+    check(bool(defl), "the checkpoint's meta carries no deflation")
+    check(defl["kind"] == "galerkin" and not defl.get("soft"),
+          f"correction kind {defl['kind']} (r faces vanish, θ is periodic: "
+          f"expected the hard-BC galerkin family)")
+    wall = [float(m.group(1)) for m in
+            (re.search(r"galerkin correction in (\S+) s", ln) for ln in lines)
+            if m]
+    check(len(wall) == 1, "no correction wall time logged")
+    before, after = defl["rel_l2_before"], res.rel_l2
+    print(f"  correction: kind {defl['kind']}, {len(defl['modes'])} modes, "
+          f"resid_drop {defl['resid_drop']:.4e}, {wall[0]:.2f} s wall on "
+          f"{card}")
+    print(f"  rel-L2 before the correction {before:.4e}, after {after:.4e} "
+          f"({before / after:.2f}x)")
+    check(math.isfinite(after) and after <= before,
+          f"rel-L2 {before} -> {after}: the correction made it worse")
+
+    # the checkpoint, served with and without its correction
+    bare = out / "uncorrected.npz"
+    checkpoint.save_pytree(bare, res.stages[0].params,
+                           {**meta, "deflation": None})
+    rng = np.random.default_rng(SEED)
+    pts = np.stack([rng.uniform(0.1, 1.0, 1_000),
+                    rng.uniform(0.0, 2 * np.pi, 1_000)], axis=1).astype(
+                        np.float32)
+    answers = []
+    for path in (out / "params_stage_1.npz", bare):
+        srv = PINNServer(str(path), "annulus_laplace", device=dev)
+        with http_server(srv) as base:
+            answers.append(np.asarray(post(base, "/predict",
+                                           pts.tolist())["u"]))
+            if path != bare:
+                b1_before = mlp_taylor.LAUNCHES
+                f_served = np.asarray(post(base, "/residual",
+                                           pts.tolist())["f"])
+                b1_grew = mlp_taylor.LAUNCHES - b1_before
+                compiled = srv.compiled
+    z = torch.from_numpy(pts).to(dev)
+    with torch.no_grad():
+        want = res.predict(z)[:, 0].cpu().numpy()
+        term = polish.deflation_term(defl)(z)[:, 0].cpu().numpy()
+    err_u = float(np.abs(answers[0] - want).max())
+    err_t = float(np.abs((answers[1] - answers[0]) - term).max())
+    check(err_u <= 1e-6, f"served /predict vs the trainer's corrected "
+                         f"predictor: max err {err_u}")
+    check(float(np.abs(term).max()) > 0.0 and err_t <= 1e-6,
+          f"uncorrected - corrected /predict vs the term: max err {err_t}, "
+          f"max |term| {np.abs(term).max()}")
+    print(f"  params_stage_1.npz served: /predict at 1,000 points equals the "
+          f"trainer's corrected predictor (max abs difference {err_u:.2e}) "
+          f"and differs from the uncorrected net by the term (max |term| "
+          f"{np.abs(term).max():.3e}, max abs difference {err_t:.2e})")
+
+    # the served residual of the corrected checkpoint.  The correction term
+    # hides the net's structure from the dispatcher, so the request is
+    # answered by the generic jvp engine and launches B1 no time (the count
+    # is printed); it is held against the trainer's corrected predictor.
+    f_want = compiled.residual_fast(lambda _, zz: res.predict(zz), None,
+                                    z)[:, 0].detach().cpu().numpy()
+    err_f = float(np.abs(f_served - f_want).max())
+    check(f_served.shape == (1_000,) and bool(np.isfinite(f_served).all()),
+          "served /residual of the corrected checkpoint: shape or values")
+    check(np.allclose(f_served, f_want, rtol=RES_RTOL, atol=RES_ATOL),
+          f"served /residual vs the trainer's corrected predictor: max err "
+          f"{err_f}")
+    print(f"  params_stage_1.npz served: /residual at 1,000 points equals the "
+          f"residual of the trainer's corrected predictor (max abs difference "
+          f"{err_f:.2e}, max |f| {np.abs(f_want).max():.3e}); engine: "
+          f"{'kernel B1' if b1_grew else 'generic jvp'}, taylor2_fwd launches "
+          f"+{b1_grew}")
+    return launches
+
+
+def queued_ms(fn, blocker) -> float:
+    """Device time per launch of ``fn`` in a queue of QUEUED launches: the
+    host enqueues them while ``blocker`` (a long kernel) still runs, so the
+    two events bracket back-to-back device work, not the host calls.
+    Median of five queues."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        blocker()
+        a.record()
+        for _ in range(QUEUED):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / QUEUED)
+    return statistics.median(times)
+
+
 def event_ms(fn) -> float:
     """Median device time of ``fn`` between two CUDA events."""
     import torch
@@ -767,6 +977,35 @@ def phase_timing_train(dev):
     out["adam"] = (k_ms, p_ms)
     print(f"  adam alone n={ADAM_N}: kernel {k_ms * 1e3:.1f} us, plain "
           f"{p_ms * 1e3:.1f} us (CUDA events, median of {TIMED_RUNS})")
+
+    # the one PyTorch call that computes the same update, on the same
+    # vectors and hyperparameters; timed here, used nowhere in the port
+    step10 = [torch.full((), 10.0, device=dev)]
+
+    def library(pp=p, mm=m, vv=v):
+        torch._fused_adam_([pp], [g], [mm], [vv], [], step10, lr=1e-3,
+                           beta1=0.9, beta2=0.999, weight_decay=0.0, eps=1e-8,
+                           amsgrad=False, maximize=False)
+
+    state = [t.clone() for t in (p, m, v)]
+    want = [t.clone() for t in state]
+    library(*state)
+    adam.adam_update_reference(g, *want, lr, 10)
+    err = max((a - b).abs().max().item() for a, b in zip(state, want))
+    check(err <= 1e-5 * max(t.abs().max().item() for t in want),
+          f"torch._fused_adam_ vs B3's plain version: max abs err {err}")
+    l_ms = event_ms(library)
+    big = torch.randn((8192, 8192), device=dev)
+    blocker = lambda: [torch.matmul(big, big) for _ in range(4)]
+    kq_ms = queued_ms(lambda: adam.adam_update_flat(g, p, m, v, lr, 10),
+                      blocker)
+    lq_ms = queued_ms(library, blocker)
+    out["adam_library"] = (l_ms, kq_ms, lq_ms)
+    print(f"  adam alone n={ADAM_N}: torch._fused_adam_ {l_ms * 1e3:.1f} us "
+          f"(CUDA events around one call, median of {TIMED_RUNS}; agrees "
+          f"with the plain version to {err:.1e}); device time per launch in "
+          f"a queue of {QUEUED} behind a long kernel: kernel "
+          f"{kq_ms * 1e3:.2f} us, torch._fused_adam_ {lq_ms * 1e3:.2f} us")
     return out
 
 
@@ -873,8 +1112,11 @@ def main() -> int:
     check(serve_launches > 0, "serving launched kernel B1 no time")
     print(f"  taylor2_fwd launches during serving: {serve_launches}")
 
-    phase("5. train (this slice's main path)")
-    launches = phase_train(dev)
+    phase("5. train (the second slice's path)")
+    train_launches = phase_train(dev)
+
+    phase("5b. recipe (this slice's main path)")
+    launches = phase_recipe(dev, card)
 
     phase("6. timing")
     times = phase_timing(dev, gen, servers)
@@ -889,18 +1131,48 @@ def main() -> int:
               f"{p_ms:.3f} ms on {card}")
 
     print(f"  card: {card}")
+    # the least time the card could take for each kernel's timed call: the
+    # larger of its bytes (inputs read once, outputs written once) over the
+    # memory rate and its operations over the fp32 FMA peak.  Per point and
+    # stream a 6x80 net on 3 features costs 2*(3*80 + 5*80*80 + 80) FLOP
+    # forward; the backward recomputes it and takes two products per layer.
+    per_point = 2 * len(IDX5) * (3 * 80 + 5 * 80 * 80 + 80)
+    work = {  # name: (bytes, operations) of the call timed in phase 6
+        "taylor2_fwd": (4 * (262_144 * (2 + len(IDX5)) + ADAM_N),
+                        262_144 * per_point),
+        "taylor2_bwd": (4 * (RECIPE_N * (2 + len(IDX5)) + 2 * ADAM_N),
+                        3 * RECIPE_N * per_point),
+        "adam": (4 * 7 * ADAM_N, 16 * ADAM_N)}
+    l_ms, kq_ms, lq_ms = times["adam_library"]
     rows = (("taylor2_fwd", "taylor2_fwd", "tpinn/kernels/mlp_taylor.py:155",
-             err_fwd, times["kernel_alone"]),
+             err_fwd, times["kernel_alone"], None, {}),
             ("taylor2_bwd", "taylor2_bwd", "tpinn/kernels/taylor_vjp.py:203",
-             err_bwd, times["taylor2_bwd"]),
+             err_bwd, times["taylor2_bwd"], None, {}),
             ("adam_update", "adam", "tpinn/kernels/adam.py:46", err_adam,
-             times["adam"]))
-    print(json.dumps({"kernels": [{
-        "name": name, "route": "cuda",
-        "source": f"tpinn_torch/kernels/csrc/{src}.cu", "replaces": where,
-        "launches": launches[src], "max_abs_err": err,
-        "ms": k_ms, "plain_ms": p_ms}
-        for name, src, where, err, (k_ms, p_ms) in rows]}))
+             times["adam"], l_ms,
+             {"queued_ms": kq_ms, "library_queued_ms": lq_ms}))
+    kernels = []
+    for name, src, where, err, (k_ms, p_ms), lib_ms, extra in rows:
+        n_bytes, n_ops = work[src]
+        t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = n_ops / PEAK_FP32_FLOPS * 1e3
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"tpinn_torch/kernels/csrc/{src}.cu", "replaces": where,
+            "launches": launches[src], "max_abs_err": err,
+            "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms,
+            "launches_by_path": {"serve": serve_launches if src ==
+                                 "taylor2_fwd" else 0,
+                                 "train": train_launches[src],
+                                 "recipe": launches[src]}, **extra})
+        print(f"  {name}: {k_ms:.4f} ms, bound {kernels[-1]['bound_ms']:.5f} "
+              f"ms by {kernels[-1]['bound_by']} "
+              f"({100 * kernels[-1]['bound_ms'] / k_ms:.1f}% of the time), "
+              f"launches on the recipe path {launches[src]}, on {card}")
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
-"""Kernels B1, B2 and B3 and the serving path on a CUDA card (marker
-``cuda``).
+"""Kernels B1, B2 and B3, the serving path and the float64 polish on a
+CUDA card (marker ``cuda``).
 
 These tests need a card and skip without one.  The file imports torch
 and tpinn_torch only, so it also runs where JAX is not installed; run it
@@ -182,3 +182,48 @@ def test_adam_kernel_matches_plain_on_card(cuda_device):
     with pytest.raises(TypeError):
         adam.adam_update_flat(g.double(), p.double(), m.double(), v.double(),
                               lr.double(), 1)
+
+
+@pytest.mark.cuda
+def test_polish_on_the_card_matches_the_cpu(cuda_device):
+    """The float64 post-processing on the card against the same calls on
+    the CPU: the last-layer solve (new output layer rtol 1e-7, objective
+    rtol 1e-8), the Galerkin correction of a hard-BC annulus net (same
+    kind and modes, coefficients rtol 1e-6) and its term in float32."""
+    from tpinn_torch.core import polish
+
+    spec = net.MLPSpec(depth=3, width=24, scl=1.3, epsil=0.9)
+    fm = net.feature_map_for(("minmax", "periodic"))
+    lo, hi = (0.1, 0.0), (1.0, TWO_PI)
+    compiled = pde.compile_pde("u_rr + 1/r*u_r + 1/r**2*u_tt", ("r", "t"))
+    g = 65
+    results = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        params = net.init_params(torch.Generator().manual_seed(3), spec, fm, dev)
+        pred = net.wrap_hard_bc(
+            net.make_predictor(spec, fm, torch.tensor(lo, device=dev),
+                               torch.tensor(hi, device=dev)),
+            pde.compile_coord_expr("(1 - r)/0.9", ("r", "t")),
+            pde.compile_coord_expr("(r - 0.1)*(1 - r)", ("r", "t")))
+        R, T = torch.meshgrid(torch.linspace(0.1, 1.0, g),
+                              torch.linspace(0.0, TWO_PI, g), indexing="xy")
+        data = {"x_col": torch.stack([R.reshape(-1), T.reshape(-1)],
+                                     dim=1).to(dev), "x_bd": [], "u_bd": []}
+        new, info = polish.last_layer_lsq(pred, compiled, params, data, 0.05)
+        assert info["applied"] and new["layers"][-1]["w"].device.type == dev.type
+        defl = polish.galerkin_defect(pred, new, compiled, lo, hi,
+                                      ["dirichlet", "periodic"], n_grid=41,
+                                      max_sin=5, max_fourier=3, drop_tol=1.0)
+        z = torch.stack([R.reshape(-1), T.reshape(-1)], dim=1)[::7].to(dev)
+        results[dev.type] = (info, new["layers"][-1]["w"].cpu().numpy(), defl,
+                             polish.deflation_term(defl)(z).cpu().numpy())
+    (i_c, w_c, d_c, t_c), (i_g, w_g, d_g, t_g) = results["cpu"], results["cuda"]
+    np.testing.assert_allclose(i_g["pre"], i_c["pre"], rtol=1e-8)
+    np.testing.assert_allclose(i_g["post"], i_c["post"], rtol=1e-8)
+    np.testing.assert_allclose(w_g, w_c, rtol=1e-7, atol=1e-7 * np.abs(w_c).max())
+    assert d_g["kind"] == d_c["kind"] == "galerkin"
+    assert d_g["modes"] == d_c["modes"]
+    np.testing.assert_allclose(d_g["coeffs"], d_c["coeffs"], rtol=1e-6,
+                               atol=1e-9 * np.abs(d_c["coeffs"]).max())
+    np.testing.assert_allclose(t_g, t_c, rtol=0, atol=1e-6 * np.abs(t_c).max()
+                               + 1e-9)

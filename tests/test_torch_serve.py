@@ -174,28 +174,121 @@ def test_cuda_without_card_raises(tmp_path, monkeypatch):
         tserve.PINNServer(str(path), "annulus_laplace", device="cuda")
 
 
+GALERKIN = {"kind": "galerkin", "lb": [0.1, 0.0], "ub": [1.0, TWO_PI],
+            "modes": [[["sin", 1], ["one", 0]], [["sin", 2], ["pcos", 1]],
+                      [["sin", 3], ["psin", 2]]],
+            "coeffs": [3.1e-3, -1.7e-3, 0.9e-3], "linearized": False}
+
+
 @pytest.mark.parametrize("what", ["deflation", "ensemble", "march", "system",
-                                  "inverse"])
+                                  "inverse", "patch"])
 def test_unported_checkpoints_refused(tmp_path, what):
+    """Ensemble, march, system, inverse and patch checkpoints are refused;
+    a deflation-corrected one is served, with the correction subtracted."""
     fm = jnet.feature_map_for(KINDS)
     s = jnet.MLPSpec(depth=2, width=8)
     p = jnet.init_params(jax.random.PRNGKey(0), s, fm)
     path = tmp_path / "params_stage_1.npz"
     meta = _meta([s])
     meta.update({
-        "deflation": {"deflation": {"kind": "galerkin", "modes": [],
-                                    "coeffs": []}},
+        "deflation": {"deflation": GALERKIN},
         "system": {"system": {"equations": ["u_x - v"],
                               "fields": ["u", "v"]}},
         "inverse": {"inverse": True, "coef": {"lam": 0.5}},
+        "patch": {"patch": {"n": [2, 2], "overlap": 0.2}},
     }.get(what, {}))
     jckpt.save_pytree(path, p, meta=meta)
     target = path
     if what in ("ensemble", "march"):
         (tmp_path / f"{what}.json").write_text("{}")
         target = tmp_path
+    if what == "deflation":
+        srv = tserve.PINNServer(str(target), "annulus_laplace", device="cpu")
+        assert srv.deflation == GALERKIN
+        return
     with pytest.raises(NotImplementedError, match="Queue A"):
         tserve.PINNServer(str(target), "annulus_laplace", device="cpu")
+
+
+@pytest.mark.parametrize("writer", ["tpinn", "tpinn_torch"])
+@pytest.mark.parametrize("kind", ["galerkin", "modal", "parabolic"])
+def test_deflation_checkpoint_served_by_both_packages(tmp_path, writer, kind):
+    """A checkpoint whose meta carries a correction, written by either
+    package, is served by both with the same /predict (1e-6 in float32)
+    and /residual, and the port's answer is the net's minus the term."""
+    from tpinn.app.serve import PINNServer as JaxServer
+    from tpinn_torch.core import polish as tpolish
+
+    defl = dict(GALERKIN)
+    if kind == "modal":
+        defl = {"kind": "modal", "lb": [0.1, 0.0], "ub": [1.0, TWO_PI],
+                "modes": [[1, 2], [3, 1]], "coeffs": [2e-3, -1e-3],
+                "eps": [-5.0, -7.0]}
+    elif kind == "parabolic":
+        grid = np.linspace(0.0, TWO_PI, 9)
+        defl = {"kind": "parabolic", "lb": [0.1, 0.0], "ub": [1.0, TWO_PI],
+                "modes": [[1], [2]], "tau": 1, "spatial": [0],
+                "tau_grid": grid.tolist(),
+                "series": [(1e-3 * grid).tolist(),
+                           (2e-3 * np.sin(grid)).tolist()],
+                "rhs": [[0.0] * 9, [0.0] * 9]}
+    fm = jnet.feature_map_for(KINDS)
+    s = jnet.MLPSpec(depth=2, width=12)
+    p = jnet.init_params(jax.random.PRNGKey(4), s, fm)
+    meta = _meta([s], HARD, deflation=defl)
+    path = tmp_path / "corrected.npz"
+    bare = tmp_path / "bare.npz"
+    if writer == "tpinn":
+        jckpt.save_pytree(path, p, meta=meta)
+    else:
+        tckpt.save_pytree(path, params_from_numpy(p, "cpu"), meta)
+    jckpt.save_pytree(bare, p, meta=_meta([s], HARD))
+    jsrv = JaxServer(str(path), "annulus_laplace")
+    tsrv = tserve.PINNServer(str(path), "annulus_laplace", device="cpu")
+    uncorrected = tserve.PINNServer(str(bare), "annulus_laplace", device="cpu")
+    assert tsrv.deflation == defl and uncorrected.deflation is None
+    pts = _points(120)
+    u_t, u_j = tsrv.predict(pts.tolist()), jsrv.predict(pts.tolist())
+    np.testing.assert_allclose(u_t, u_j, rtol=0, atol=1e-6)
+    term = tpolish.deflation_term(defl)(torch.from_numpy(pts))[:, 0].numpy()
+    assert np.abs(term).max() > 1e-4
+    np.testing.assert_allclose(
+        np.asarray(uncorrected.predict(pts.tolist())) - np.asarray(u_t), term,
+        rtol=0, atol=1e-6)
+    np.testing.assert_allclose(tsrv.residual(pts.tolist()),
+                               jsrv.residual(pts.tolist()), rtol=1e-3,
+                               atol=1e-4)
+
+
+def test_server_computes_a_correction_at_load(tmp_path):
+    """deflate='full' on a checkpoint trained without a correction runs
+    the trainer's dispatcher at load, as tpinn's server does: on the
+    hard-BC poisson_1d net the diagonal full-band family."""
+    from tpinn.app.serve import PINNServer as JaxServer
+
+    fm = jnet.feature_map_for(["minmax"])
+    s = jnet.MLPSpec(depth=2, width=12, epsil=0.05)
+    p = jnet.init_params(jax.random.PRNGKey(2), s, fm)
+    path = tmp_path / "p1d.npz"
+    jckpt.save_pytree(path, p, meta={
+        "stage": 1, "scl": 1.0, "epsil": 0.05, "problem": "poisson_1d",
+        "chain": [jnet.spec_to_dict(s)], "feature_kinds": ["minmax"],
+        "lb": [0.0], "ub": [1.0], "hard_bc": ["0", "x*(1 - x)"],
+        "coords": ["x"], "pad_features": 0, "deflation": None})
+    jsrv = JaxServer(str(path), "poisson_1d", deflate="full")
+    tsrv = tserve.PINNServer(str(path), "poisson_1d", deflate="full",
+                             device="cpu")
+    off = tserve.PINNServer(str(path), "poisson_1d", device="cpu")
+    assert off.deflation is None
+    assert tsrv.deflation["kind"] == "modal" and tsrv.deflation["modes"]
+    pts = np.linspace(0.02, 0.98, 41, dtype=np.float32)[:, None].tolist()
+    u = np.asarray(tsrv.predict(pts))
+    np.testing.assert_allclose(u, jsrv.predict(pts), rtol=1e-4, atol=1e-5)
+    assert np.abs(u - np.asarray(off.predict(pts))).max() > 1e-4
+    # the correction is the defect's: the corrected net solves the equation
+    assert (np.abs(u - np.sin(np.pi * np.asarray(pts)[:, 0])).max()
+            < 1e-2 * np.abs(np.asarray(off.predict(pts))
+                            - np.sin(np.pi * np.asarray(pts)[:, 0])).max())
 
 
 def test_problem_registry():
@@ -216,6 +309,8 @@ def test_problem_registry():
 def test_serve_path_imports_no_jax():
     """The port loads neither jax nor the JAX package tpinn."""
     code = ("import sys; import tpinn_torch.app.serve, "
+            "tpinn_torch.core.polish, tpinn_torch.core.train, "
+            "tpinn_torch.problems, "
             "tpinn_torch.kernels.mlp_taylor, tpinn_torch.kernels._build; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'tpinn')))")

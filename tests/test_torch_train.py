@@ -40,6 +40,16 @@ LB, UB = (0.1, 0.0), (1.0, 2 * np.pi)
 HARD = ("(1 - r)/0.9", "(r - 0.1)*(1 - r)")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These nets are tiny: one intra-op thread is as fast as eight alone,
+    and many times faster when several test workers share the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _setup(hard=False, seed=0):
     fm_j = jnet.feature_map_for(("minmax", "periodic"))
     spec_j = jnet.MLPSpec(depth=3, width=24, scl=1.5, epsil=0.8)
@@ -150,8 +160,19 @@ def test_loss_refusals_and_helpers():
         tloss.make_loss(composed, compiled, engine="kernel")
     assert tloss.kernel_engine_unavailable(composed, False) is not None
     assert tloss.kernel_engine_unavailable(pred_t, False) is None
-    with pytest.raises(NotImplementedError, match="ring"):
-        tloss.make_loss(pred_t, compiled, ring={"k": 1})
+    # the ring penalty adds weight * ||P^T r(z)||^2 to the loss column only
+    ring = {"z": data_t["x_col"][:50], "P": torch.full((50, 2), 0.1),
+            "weight": 3.0}
+    lw, ref = torch.tensor([0.05, 0.0]), torch.tensor(1.0)
+    l0, info0 = tloss.make_loss(pred_t, compiled)(p_t, data_t, lw, ref)
+    l1, info1 = tloss.make_loss(pred_t, compiled, ring=ring)(p_t, data_t, lw,
+                                                             ref)
+    r = compiled.residual_fast(pred_t, p_t, ring["z"])
+    extra = 3.0 * float(torch.sum(torch.square(ring["P"].T @ r)))
+    assert float(l1 - l0) == pytest.approx(extra, rel=1e-4)
+    assert float(info1[0] - info0[0]) == pytest.approx(extra, rel=1e-4)
+    np.testing.assert_array_equal(info1[1:].detach().numpy(),
+                                  info0[1:].detach().numpy())
     with pytest.raises(ValueError, match="engine"):
         tloss.make_loss(pred_t, compiled, engine="bogus")
     assert tloss.ms_error(torch.zeros((0, 1))).shape == (1,)
@@ -250,16 +271,103 @@ def test_train_refusals():
     problem = tproblems.poisson_1d()
     base = _quick_spec(adam=1, lbfgs=3)
     for kw, exc in ((dict(cpu_fallback=True), ValueError),
-                    (dict(lsq_polish="sweep"), NotImplementedError),
-                    (dict(deflation="on"), NotImplementedError),
-                    (dict(ring_weight=0.1), NotImplementedError),
+                    (dict(lsq_polish="sweep"), ValueError),
+                    (dict(deflation="on"), ValueError),
+                    (dict(adam_precision="bf16"), ValueError),
                     (dict(checkpoint_every=10), NotImplementedError),
-                    (dict(adam_precision="default"), NotImplementedError)):
+                    (dict(lbfgs_device="cpu"), NotImplementedError)):
         with pytest.raises(exc):
             ttrain.run_training(problem, dataclasses.replace(base, **kw),
                                 device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         ttrain.run_training(problem, base, mesh=object(), device="cpu")
+    # lsq_polish='on' cannot serve a masked domain or operator BC groups
+    masked = dataclasses.replace(problem, eval_mask=lambda z: z * 0 + 1)
+    with pytest.raises(ValueError, match="masked"):
+        ttrain.run_training(masked, dataclasses.replace(base, lsq_polish="on"),
+                            device="cpu")
+    neumann = dataclasses.replace(problem, bc_groups=(
+        problem.bc_groups[0],
+        dataclasses.replace(problem.bc_groups[1], operator="u_x",
+                            value=-float(np.pi))))
+    with pytest.raises(ValueError, match="operator"):
+        ttrain.run_training(neumann, dataclasses.replace(base, lsq_polish="on"),
+                            device="cpu")
+
+
+@pytest.mark.parametrize("case", ["masked", "operator-bc", "nonlinear"])
+def test_polish_and_correction_skip_rules(case):
+    """lsq_polish='auto' and deflation skip, with a log line, where the
+    solve does not apply (the skip rules of tpinn's run_training)."""
+    problem = tproblems.poisson_1d()
+    spec = dataclasses.replace(_quick_spec(adam=20, lbfgs=9),
+                               testing_size=(64,), lsq_polish="auto",
+                               deflation="full")
+    if case == "masked":
+        problem = dataclasses.replace(problem, eval_mask=lambda z: z * 0 + 1)
+        want = ("lsq_polish skipped (masked", "deflation skipped: masked")
+    elif case == "operator-bc":
+        problem = dataclasses.replace(problem, bc_groups=(
+            problem.bc_groups[0],
+            dataclasses.replace(problem.bc_groups[1], operator="u_x",
+                                value=-float(np.pi))))
+        want = ("lsq_polish skipped (operator", "deflation skipped: operator")
+    else:
+        problem = dataclasses.replace(
+            problem, equation="u_xx + u*u - sin(pi*x)**2 + pi**2*sin(pi*x)")
+        spec = dataclasses.replace(spec, deflation="auto")
+        want = ("lsq_polish skipped (equation nonlinear",)
+    lines = []
+    res = ttrain.run_training(problem, spec, log_fn=lines.append, device="cpu")
+    for text in want:
+        assert any(text in ln for ln in lines), (text, lines)
+    assert not any("lsq polish objective" in ln for ln in lines)
+    assert not any("spectral correction" in ln for ln in lines)
+    assert np.isfinite(res.rel_l2)
+
+
+@pytest.mark.parametrize("name", [None, "highest", "high", "default"])
+def test_adam_precision_is_scoped_to_the_adam_phase(name, monkeypatch):
+    """The three names (and None) are accepted; torch.matmul may use TF32
+    inside the Adam phase only with 'default'; the global setting is what
+    it was after run_training returns, and after it raises."""
+    from tpinn_torch.core import optim as toptim
+
+    seen = []
+    real = toptim.make_adam_phase
+
+    def spy(*a, **k):
+        phase = real(*a, **k)
+
+        def wrapped(*args, **kw):
+            seen.append(torch.backends.cuda.matmul.allow_tf32)
+            return phase(*args, **kw)
+        return wrapped
+
+    monkeypatch.setattr(toptim, "make_adam_phase", spy)
+    problem = tproblems.poisson_1d()
+    spec = dataclasses.replace(_quick_spec(adam=5, lbfgs=3),
+                               testing_size=(32,), adam_precision=name)
+    for before in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = before
+        try:
+            ttrain.run_training(problem, spec, device="cpu")
+            assert torch.backends.cuda.matmul.allow_tf32 is before
+            assert seen[-1] is (name == "default")
+
+            def boom(*a, **k):
+                assert torch.backends.cuda.matmul.allow_tf32 is (
+                    name == "default")
+                raise RuntimeError("boom")
+
+            monkeypatch.setattr(toptim, "make_adam_phase",
+                                lambda *a, **k: boom)
+            with pytest.raises(RuntimeError, match="boom"):
+                ttrain.run_training(problem, spec, device="cpu")
+            assert torch.backends.cuda.matmul.allow_tf32 is before
+            monkeypatch.setattr(toptim, "make_adam_phase", spy)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def test_train_helpers_match_tpinn():

@@ -19,11 +19,15 @@ Queries are padded to batch tiers (powers of two, at least 64), as the
 JAX server does to bound its compiled shapes; here the tiers also bound
 the shapes kernel B1 and cuBLAS see.
 
+A checkpoint whose meta carries a spectral ``deflation`` correction (the
+trainer's final stage, polish.defect_correction) is served with the
+correction subtracted, u(z) − T(z); ``deflate="auto" | "full"`` computes
+one at load for a checkpoint trained without it.  The corrected residual
+differentiates through T(z) with the generic jvp engine.
+
 Not ported yet, and refused with NotImplementedError rather than served
 wrong: ensembles (``ensemble.json``), time-marching (``march.json``),
-patch, coupled-system and inverse checkpoints, and checkpoints carrying a
-spectral ``deflation`` correction (serving those without the correction
-would answer with the uncorrected field).  ROADMAP.md Queue A items 11,
+patch, coupled-system and inverse checkpoints.  ROADMAP.md Queue A items
 13 and 15 bring them.
 """
 
@@ -31,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
 from typing import Optional
@@ -39,7 +44,7 @@ import numpy as np
 import torch
 
 from tpinn_torch import problems
-from tpinn_torch.core import net, pde
+from tpinn_torch.core import net, pde, polish
 from tpinn_torch.utils import checkpoint as ckpt
 
 
@@ -60,8 +65,8 @@ def _refuse(what: str, item: str):
 
 class PINNServer:
     def __init__(self, checkpoint: str, problem_name: Optional[str] = None,
-                 depth: Optional[int] = None, width: Optional[int] = None, *,
-                 device):
+                 depth: Optional[int] = None, width: Optional[int] = None,
+                 deflate: str = "off", *, device):
         self.device = _resolve_device(device)
 
         cpath = Path(checkpoint)
@@ -82,8 +87,6 @@ class PINNServer:
             _refuse("inverse", "13")
         if meta.get("patch"):
             _refuse("patch", "13")
-        if meta.get("deflation"):
-            _refuse("deflation-corrected", "11")
         if problem_name is None:
             raise ValueError(
                 "--problem is required: forward checkpoints do not describe "
@@ -134,6 +137,31 @@ class PINNServer:
             )
             predictor = net.wrap_hard_bc(predictor, lift_fn, bubble_fn)
         self.params, _ = ckpt.load_pytree(checkpoint, template)
+        defl = meta.get("deflation")
+        if not defl and deflate != "off":
+            # retroactive correction for a checkpoint trained WITHOUT one
+            # (float64, once at load; the guards make it a no-op where it
+            # cannot help).  The dispatcher the trainer uses.
+            src = (pde.compile_coord_expr(problem.source, problem.coords)
+                   if problem.source else None)
+            defl = polish.defect_correction(
+                predictor, self.params, self.compiled,
+                problem.lb, problem.ub,
+                tuple(meta["hard_bc"]) if meta.get("hard_bc") else None,
+                mode=deflate, source_fn=src,
+                coords=tuple(meta.get("coords", problem.coords)),
+                bc_groups=problem.bc_groups)
+            print(f"[serve] deflate={deflate}: "
+                  + (f"{defl['kind']} correction, {len(defl['modes'])} "
+                     f"modes" if defl else "no applicable correction"),
+                  file=sys.stderr)
+        self.deflation = defl or None
+        if defl:
+            # subtract the correction term (the trained run's meta or the
+            # retroactive solve above)
+            term = polish.deflation_term(defl)
+            raw = predictor
+            predictor = lambda p, z: raw(p, z) - term(z)
         self.predictor = predictor
 
     def _predict(self, z: torch.Tensor) -> torch.Tensor:
@@ -218,12 +246,17 @@ def main():  # pragma: no cover
     p.add_argument("--port", type=int, default=8060)
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' fails without a card")
+    p.add_argument("--deflate", default="off",
+                   choices=("off", "auto", "full"),
+                   help="compute a spectral defect correction at load for a "
+                        "checkpoint trained without one")
     args = p.parse_args()
     # full fp32 products: TF32 would spoil the second-derivative streams
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    server = PINNServer(args.checkpoint, args.problem, device=args.device)
+    server = PINNServer(args.checkpoint, args.problem, deflate=args.deflate,
+                        device=args.device)
     httpd = ThreadingHTTPServer(("0.0.0.0", args.port), make_handler(server))
     print(f"serving {args.problem} on :{args.port} ({server.device})")
     httpd.serve_forever()

@@ -17,7 +17,7 @@ predictor's structured partials), "kernel" (kernels B1/B2 through their
 autograd Function; plain dense nets and hard-BC wrappers around one) and
 "auto" (``pde.residual_fast``: B1/B2 for float32 plain nets, the generic
 engine otherwise; with ``deriv_loss`` the generic engine, as in
-``tpinn``).  The resonance-band ``ring`` penalty is not ported yet.
+``tpinn``).
 """
 
 from __future__ import annotations
@@ -112,16 +112,17 @@ def make_loss(
     ``causal`` (``{"axis", "t0", "t1", "bins", "eps"}``: slab i's residual
     weighted by exp(−eps · Σ_{j<i} L_j / Σ_j L_j), detached; loss_eqn
     becomes the weighted term while the eqn_err columns stay unweighted).
-    ``ring`` raises NotImplementedError (it needs
-    ``polish.ring_penalty_setup``, ROADMAP.md Queue A item 11)."""
+    ``ring`` is the resonance-band penalty of
+    ``polish.ring_penalty_setup``, ``{"z": [N,d], "P": [N,M], "weight":
+    w}``: it adds ``w·‖Pᵀ r(z)‖²``, the implied mean-square ring-mode
+    error of the live residual, to the total (the ``loss`` column only;
+    the loss_info layout is unchanged).  The raw residual is used, without
+    ``residual_weight_fn``: P already carries the quadrature weights and
+    the 1/ε amplification."""
     from tpinn_torch.core import deriv as deriv_mod
 
     if engine not in ENGINES:
         raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
-    if ring is not None:
-        raise NotImplementedError(
-            "the ring penalty is not ported to tpinn_torch yet (needs "
-            "polish.ring_penalty_setup, ROADMAP.md Queue A item 11)")
     kernel_partials = None
     if engine == "kernel":
         why = kernel_engine_unavailable(predictor, deriv_loss)
@@ -198,6 +199,10 @@ def make_loss(
         else:
             loss_eqn = res_term
         loss = loss_data + lw[0] * loss_eqn
+        if ring is not None:
+            f_ring = residual_at(params, ring["z"])
+            loss = loss + ring["weight"] * torch.sum(
+                torch.square(torch.matmul(ring["P"].T, f_ring)))
         loss_n = loss / ref
         loss_info = torch.cat([torch.stack([loss, loss_data, loss_eqn]),
                                data_err, eqn_err])

@@ -17,18 +17,35 @@ parameter gradient through kernel B2 (``engine``/``adam_engine``
 through kernel B3.  The float64 evaluation runs on the device through the
 generic engine (the TPU needed a hop to the host CPU for it).
 
+After every L-BFGS round a linear equation gets the exact last-layer
+least-squares solve (``lsq_polish``, polish.last_layer_lsq: with
+``lbfgs_rounds`` > 1 this is variable projection), and the final stage
+closes with the spectral defect correction (``deflation``,
+polish.defect_correction): the corrected fields go into the artifacts,
+the correction into the checkpoint meta, and ``TrainResult.predict``
+subtracts it.  Both run in float64 on the training device.
+``ring_weight`` > 0 adds the resonance-band penalty to the stage loss.
+
+``adam_precision`` sets the ``torch.matmul`` precision of the Adam phase
+and of nothing else (:func:`adam_matmul_precision`): None, "highest" and
+"high" keep IEEE fp32 products (torch has no 3-pass mode to map "high"
+to), "default" allows TF32.  It reaches the dense products autograd sees
+(the boundary terms' forward, any net outside the kernels' scope);
+kernels B1 and B2 compute in fp32 FMA whatever it says.  L-BFGS, the
+float64 evaluation and all of polish.py never see TF32.
+
 Not ported yet, and refused with NotImplementedError before any work:
-``lsq_polish`` and ``deflation`` other than "off" and ``ring_weight > 0``
-(ROADMAP.md Queue A item 11), ``mesh`` (item 14), ``checkpoint_every >
-0`` and mid-stage resume (item 9), ``adam_precision`` other than None or
-"highest" (TF32/bf16 on the exact path is a measured decision, item 8),
-``lbfgs_device``.  ``cpu_fallback=True`` raises ValueError: the port never
-retries a phase elsewhere, so ``TrainResult.fell_back`` is always False.
+``mesh`` (ROADMAP.md Queue A item 14), ``checkpoint_every > 0`` and
+mid-stage resume (item 9), ``lbfgs_device``.  ``cpu_fallback=True`` raises
+ValueError: the port never retries a phase elsewhere, so
+``TrainResult.fell_back`` is always False.
 """
 
 from __future__ import annotations
 
+import contextlib
 import sys
+import time
 from dataclasses import dataclass, replace
 from pathlib import Path
 from typing import Callable, List, Optional, Sequence, Tuple, Union
@@ -37,7 +54,7 @@ import numpy as np
 import torch
 
 from tpinn_torch.core import loss as loss_mod
-from tpinn_torch.core import net, optim, pde, sample
+from tpinn_torch.core import net, optim, pde, polish, sample
 from tpinn_torch.utils import artifacts
 from tpinn_torch.utils import checkpoint as ckpt
 
@@ -282,6 +299,23 @@ def make_density_fn(predictor, compiled: pde.CompiledPDE, grids,
     return density
 
 
+# adam_precision -> whether torch.matmul may use TF32 in the Adam phase
+_ADAM_TF32 = {None: False, "highest": False, "high": False, "default": True}
+
+
+@contextlib.contextmanager
+def adam_matmul_precision(name):
+    """Set the global ``torch.matmul`` float32 precision for the Adam phase
+    (``TrainSpec.adam_precision``) and restore what it was on the way out,
+    also when the phase raises."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = _ADAM_TF32[name]
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
 def _check_supported(spec: TrainSpec, mesh) -> None:
     def later(what, item):
         raise NotImplementedError(
@@ -293,17 +327,16 @@ def _check_supported(spec: TrainSpec, mesh) -> None:
                          "phase on another device")
     if mesh is not None:
         later("mesh (points data parallelism)", 14)
-    if spec.lsq_polish != "off":
-        later(f"lsq_polish={spec.lsq_polish!r}", 11)
-    if spec.deflation != "off":
-        later(f"deflation={spec.deflation!r}", 11)
-    if spec.ring_weight > 0:
-        later("ring_weight > 0 (polish.ring_penalty_setup)", 11)
+    if spec.lsq_polish not in ("off", "auto", "on"):
+        raise ValueError(f"lsq_polish={spec.lsq_polish!r}")
+    if spec.deflation not in ("off", "auto", "full"):
+        raise ValueError(f"deflation={spec.deflation!r}")
+    if spec.adam_precision not in _ADAM_TF32:
+        raise ValueError(
+            f"adam_precision={spec.adam_precision!r}: expected None, "
+            f"'highest', 'high' or 'default'")
     if spec.checkpoint_every > 0:
         later("checkpoint_every > 0 (mid-stage Adam checkpoints)", 9)
-    if spec.adam_precision not in (None, "highest"):
-        later(f"adam_precision={spec.adam_precision!r} (TF32/bf16 on the "
-              f"Adam phase)", 8)
     if spec.lbfgs_device is not None:
         later(f"lbfgs_device={spec.lbfgs_device!r}", 9)
     if spec.dtype not in _DTYPES:
@@ -359,13 +392,20 @@ def run_training(
                  if problem.source else None)
     bc_ops = tuple(pde.compile_pde(g.operator, problem.coords)
                    if g.operator else None for g in problem.bc_groups)
-    if not any(o is not None for o in bc_ops):
+    has_op_bc = any(o is not None for o in bc_ops)
+    if not has_op_bc:
         bc_ops = None
     hard_fns = None
     if problem.hard_bc is not None:
         hard_fns = tuple(pde.compile_coord_expr(e, problem.coords)
                          for e in problem.hard_bc)
     rw_fn = resolve_residual_weight(problem)
+    if spec.lsq_polish == "on" and problem.eval_mask is not None:
+        # fail BEFORE spending the training budget: the polish would be
+        # rejected at its call site anyway (bounding-box quadrature over
+        # the dead region)
+        raise ValueError("lsq_polish='on' is not supported on masked "
+                         "(eval_mask) domains")
     feature_map = net.feature_map_for(problem.feature_kinds,
                                       pad_to=spec.pad_features)
     lb = torch.tensor(problem.lb, dtype=dtype, device=dev)
@@ -478,6 +518,26 @@ def run_training(
         density_fn = make_density_fn(predictor, compiled_st, grids, source_fn,
                                      mask_fn=problem.eval_mask)
 
+        ring_arg = None
+        if spec.ring_weight > 0 and problem.eval_mask is not None:
+            log(f"stage {stage_no}: ring penalty inert (masked non-box "
+                "domain: bounding-box quadrature would integrate the "
+                "unconstrained dead region)")
+        elif spec.ring_weight > 0:
+            setup = polish.ring_penalty_setup(
+                compiled_st, problem.lb, problem.ub,
+                band=spec.ring_band, max_mode=spec.ring_max_mode)
+            if setup is not None:
+                z_r, P_r = setup
+                ring_arg = {"z": torch.as_tensor(z_r, dtype=dtype, device=dev),
+                            "P": torch.as_tensor(P_r, dtype=dtype, device=dev),
+                            "weight": spec.ring_weight}
+                log(f"stage {stage_no}: ring penalty on {P_r.shape[1]} "
+                    f"band modes (weight {spec.ring_weight:g})")
+            else:
+                log(f"stage {stage_no}: ring penalty inert "
+                    "(no resonance-band modes for this operator)")
+
         causal_arg = None
         if spec.causal_eps > 0:
             if spec.causal_axis not in problem.coords:
@@ -508,7 +568,8 @@ def run_training(
                                       deriv_loss=spec.deriv_loss,
                                       engine=engine,
                                       residual_weight_fn=rw_fn,
-                                      bc_operators=bc_ops, causal=causal)
+                                      bc_operators=bc_ops, ring=ring_arg,
+                                      causal=causal)
 
         loss_fn = build_loss(predictor, spec.engine)
         # Adam-phase loss: another engine and/or causal weighting (causal
@@ -575,7 +636,8 @@ def run_training(
 
             phase = optim.make_adam_phase(loss_fn_adam, sample_fn, density_fn,
                                           adam_cfg, info_width, adam_log)
-            res = phase(gen_adam, params, data0, F0, stage_lw, ref)
+            with adam_matmul_precision(spec.adam_precision):
+                res = phase(gen_adam, params, data0, F0, stage_lw, ref)
             params = res.params
             n_adam = res.n_valid
             hist_adam = res.history[:n_adam].cpu().numpy()
@@ -639,6 +701,11 @@ def run_training(
                         else "accepted iterations")
                 log(f"stage {stage_no}: L-BFGS round {ri + 1}/{rounds} done "
                     f"({n_rows - 1} {unit}, final loss {part[-1, 0]:.4e})")
+                params = _lsq_polish_round(
+                    spec, problem, stage_no, predictor, compiled_st, params,
+                    grid_fixed if grid_fixed is not None else data_lbfgs,
+                    float(stage_lw[0]), source_fn, rw_fn, has_op_bc, dtype,
+                    log)
             hist_lbfgs = np.concatenate(hist_parts, axis=0)
         else:
             hist_adam = np.zeros((0, info_width), np.float64)
@@ -648,6 +715,36 @@ def run_training(
         frozen = _freeze(predictor, params)
         u_star, f_star, exact64 = eval_stage_f64(
             predictor, params, X_star, compiled_st, source_fn, problem.exact)
+
+        # --- spectral error correction (final stage only)
+        defl = None
+        if si == len(spec.stages) - 1 and spec.deflation != "off":
+            defl = _final_correction(spec, problem, predictor, compiled_st,
+                                     params, source_fn, has_op_bc, log)
+        if defl is not None:
+            du, df = polish.deflation_fields(
+                defl, compiled_st, X_star.to(torch.float64).cpu().numpy())
+            if exact64 is not None:
+                # pre-correction accuracy, kept in the correction meta so
+                # every run records its own before/after pair
+                defl["rel_l2_before"] = float(
+                    rms(u_star - exact64) / (rms(exact64) + 1e-300))
+            u_star = u_star - du
+            term = polish.deflation_term(defl)
+            frozen = lambda z, _raw=frozen, _t=term: _raw(z) - _t(z)
+            if df is None:
+                # nonlinear: the residual is not affine in the correction
+                # — recompute it from the corrected predictor instead of
+                # adjusting the field
+                pred_corr = (lambda p, z, _p=predictor, _t=term:
+                             _p(p, z) - _t(z))
+                _, f_star, _ = eval_stage_f64(
+                    pred_corr, params, X_star, compiled_st, source_fn, None)
+            else:
+                f_star = f_star - df
+            log(f"stage {stage_no}: spectral correction "
+                f"({defl['kind']}) removed {len(defl['modes'])} modes, "
+                f"|du|_rms {float(np.sqrt((du ** 2).mean())):.3e}")
 
         if problem.dim == 1:
             U = u_star[:, 0][None, :]                 # [1, nx]
@@ -689,7 +786,9 @@ def run_training(
                                   if problem.hard_bc else None),
                       "coords": list(problem.coords),
                       "pad_features": spec.pad_features,
-                      "deflation": None})
+                      # JSON-safe spectral correction; serving subtracts
+                      # polish.deflation_term(meta["deflation"])
+                      "deflation": defl})
 
         stage_results.append(StageResult(
             params=params, predictor_frozen=frozen, history=hist_stage,
@@ -718,6 +817,77 @@ def run_training(
     return TrainResult(problem=problem, spec=spec, stages=stage_results,
                        predict=final.predictor_frozen, rel_l2=rel_l2,
                        history=np.concatenate(histories, axis=0))
+
+
+def _lsq_polish_round(spec, problem, stage_no, predictor, compiled, params,
+                      data, lw0, source_fn, rw_fn, has_op_bc, dtype, log):
+    """The exact last-layer least-squares solve after one L-BFGS round
+    (linear PDEs).  Applied after EVERY round: with lbfgs_rounds > 1 this
+    is variable projection — L-BFGS moves the hidden features, the float64
+    solve re-lands the output layer on the convex subproblem's optimum
+    each time.  Returns the parameters to go on with, in ``dtype``."""
+    if spec.lsq_polish == "off":
+        return params
+    if problem.eval_mask is not None:
+        # masked non-box domain: the polish's quadrature spans the
+        # BOUNDING box, and the dead region's residual is unconstrained —
+        # a solve over it would bake garbage ("on" was refused up front)
+        log(f"stage {stage_no}: lsq_polish skipped (masked non-box domain)")
+        return params
+    if has_op_bc and problem.hard_bc is None:
+        # the polish's soft-BC rows pin VALUES at z_bd; operator groups
+        # (Neumann/Robin) would be silently treated as Dirichlet.  Hard-BC
+        # runs are unaffected (boundary rows unused).
+        if spec.lsq_polish == "on":
+            raise ValueError(
+                "lsq_polish='on' with operator (Neumann/Robin) BC groups "
+                "needs hard_bc; use lsq_polish='off'")
+        log(f"stage {stage_no}: lsq_polish skipped (operator BC groups pin "
+            f"derivatives, not values)")
+        return params
+    if not compiled.is_linear and spec.lsq_polish == "auto":
+        log(f"stage {stage_no}: lsq_polish skipped (equation nonlinear in u)")
+        return params
+    t0 = time.perf_counter()
+    new_params, pinfo = polish.last_layer_lsq(
+        predictor, compiled, params, data, lw0, source_fn,
+        residual_weight_fn=rw_fn)
+    log(f"stage {stage_no}: lsq polish objective {pinfo['pre']:.4e} -> "
+        f"{pinfo['post']:.4e}{'' if pinfo['applied'] else ' (not applied)'} "
+        f"in {time.perf_counter() - t0:.2f} s")
+    return _cast_tree(new_params, dtype) if pinfo["applied"] else params
+
+
+def _final_correction(spec, problem, predictor, compiled, params, source_fn,
+                      has_op_bc, log):
+    """The final stage's spectral defect correction (polish.
+    defect_correction), or None where it does not apply."""
+    if problem.eval_mask is not None:
+        # box-spectral correctors integrate the bounding box; the dead
+        # region's unconstrained residual would pollute every modal
+        # coefficient
+        log("deflation skipped: masked non-box domain")
+        return None
+    if has_op_bc and problem.hard_bc is None:
+        # the soft-BC Chebyshev path treats the boundary trace as known
+        # Dirichlet data; operator groups don't provide one
+        log("deflation skipped: operator (Neumann/Robin) BC groups have no "
+            "Dirichlet boundary trace")
+        return None
+    if not (compiled.is_linear or spec.deflation == "full"):
+        # nonlinear operators are admitted on "full" only: the Galerkin
+        # path linearizes the residual (one Newton step in the error);
+        # "auto" deflation stays linear-only
+        return None
+    t0 = time.perf_counter()
+    defl = polish.defect_correction(
+        predictor, params, compiled, problem.lb, problem.ub, problem.hard_bc,
+        mode=spec.deflation, source_fn=source_fn, coords=problem.coords,
+        bc_groups=problem.bc_groups)
+    log(f"deflation={spec.deflation!r}: "
+        + (f"{defl['kind']} correction" if defl else "no applicable "
+           "correction") + f" in {time.perf_counter() - t0:.2f} s")
+    return defl
 
 
 def _freeze(predictor, params):
