@@ -15,14 +15,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
    a. B1 against its plain PyTorch version and against the generic
       torch.func.jvp engine, per stream, on the 6x80 annulus net (N =
       262,144, a ragged 1,077 and the 202,500 points of the recipe's
-      L-BFGS grid), a sin-first net with pad_to=3, and a 3-coordinate net.
+      L-BFGS grid), a sin-first net with pad_to=3, a 3-coordinate net, and
+      the poisson_3d recipe's 5x64 net with its S = 7 plan at its batch
+      (7,200) and its L-BFGS grid (24^3 = 13,824).
    b. B2 through the autograd Function (B1 forward, B2 backward) against
       B2's plain version on the same cotangent and against autograd
       through the plain Taylor-2 recurrence, per leaf, on the 6x80
       annulus net at the recipe's batch (46,000), a ragged 1,077 and the
-      recipe's L-BFGS grid (450^2 = 202,500), the pad_to=3 net and the
-      3-coordinate net; the same under the hard-BC product rule at those
-      three sizes; points that require a gradient must be refused.
+      recipe's L-BFGS grid (450^2 = 202,500), the pad_to=3 net, the
+      3-coordinate net and the poisson_3d net at its two sizes; the same
+      under the hard-BC product rule at those sizes, the 3-D product rule
+      of poisson_3d included; points that require a gradient must be
+      refused.
    c. B3 against its plain version over 1,000 steps, with a learning-rate
       change half-way, on n = 32,801 (the 6x80 net on 3 features) and an
       odd n.
@@ -42,7 +46,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    after, loss drops, rel-L2, the 11 artifacts and the checkpoints
    checked; the stage-2 checkpoint is served and /predict checked
    against the trainer's predictor.
-5b. Recipe (this slice's main path): get_recipe("annulus_laplace") as
+5b. Recipe (the flagship recipe's path): get_recipe("annulus_laplace") as
    written — 6x80, the 46,000-point batch, lbfgs_grid=450,
    lbfgs_rounds=3, lsq_polish="auto", deflation="full",
    adam_precision="default" — with only the budgets cut, through
@@ -56,16 +60,39 @@ Phases, each of which raises on failure (the script then exits non-zero):
    same checkpoint served without its correction; its served /residual
    against the residual of the trainer's corrected predictor, with the
    engine that answered it (B1's launch count over the request).
+5c. poisson_3d (the 3-D training path, the newest main path):
+   get_recipe("poisson_3d") as written — 5x64 hard BC, the 7,200-point batch from the n-D sampler on
+   a 31^3 density grid, lbfgs_grid=24 (13,824 points), 2 rounds,
+   lsq_polish="auto", testing_size=(48, 48, 48) — with only the budgets
+   and the cadences that scale with them cut, through run_training on the
+   card: the step-0 gradient of the kernel engine against the generic
+   engine's at the recipe's batch first; then Adam through B1 + B2 + B3 at
+   d = 3, S = 7 (launch counts reset before, read after; B3 equals the
+   Adam steps), the 3-D density refreshed on the card, two L-BFGS rounds
+   each followed by the last-layer solve at d = 3 (post <= pre), rel-L2
+   on the 48^3 grid under a stated bar, and the checkpoint served:
+   /predict and /residual at 3-coordinate points against the trainer's
+   predictor and residual, B1's count growing over /residual.
+5d. The other recipes' paths, each at a cut budget: helmholtz_2d
+   (two Fourier stages, the second warm-started; the generic engine by
+   structure: B1 and B2 launch 0 times, B3 every Adam step), burgers_1d
+   (two composed stages, nonlinear: the last-layer solve skipped, the
+   Galerkin correction's Newton step or its guard), lshape_laplace (the
+   masked domain; with lsq_polish and deflation asked for, both skipped
+   with a log line), kdv_1d (order 3: the generic engine, B1 and B2 0
+   times).
 6. Timing (medians of synchronised runs): B1 alone and inside the
    residual at the serving shapes; the Adam step with the kernel engine
-   against the plain engine at the recipe's shape and at bench.py's; B2
-   and B3 alone against their plain versions; B3 and the one PyTorch call
+   against the plain engine at the recipe's shape, at bench.py's and at
+   poisson_3d's; B2 and B3 alone against their plain versions, B1 and B2
+   also at poisson_3d's batch; B3 and the one PyTorch call
    that computes the same update (torch._fused_adam_) alone and in a
    queue of 100 launches behind a long kernel, which reads the device
    time per launch apart from the host call.
 
 The line before the last is a JSON object describing the kernels (each
-with its launches on this slice's main path, its time, its plain
+with its launches on the newest main path, phase 5c, and on every
+earlier path, its time, its plain
 version's, the card's bound for the same work and, where one PyTorch
 call computes the same function, that call's time); the last line is
 {"ok": true, "device": {...}}.
@@ -118,6 +145,22 @@ RECIPE_ADAM = 300   # phase 5b: adam_epochs of the recipe, cut from 8,000
 # close to the 0.8 above which polish.galerkin_defect keeps no correction
 RECIPE_LBFGS = 900
 RECIPE_GRID_N = 450 * 450   # points of the recipe's lbfgs_grid
+# the poisson_3d recipe (tpinn_torch/problems/recipes.py): 5x64 hard BC,
+# u and the three firsts and pure seconds of the 3-D product rule
+P3D_COUNTS = dict(n_col=4000, n_band=1000, n_adaptive=1000, n_bd=200, grid=31)
+P3D_N = 4000 + 1000 + 1000 + 6 * 200
+P3D_GRID_N = 24 ** 3
+IDX7 = [(), (0,), (1,), (2,), (0, 0), (1, 1), (2, 2)]
+P3D_PARAMS = 3 * 64 + 64 + 4 * (64 * 64 + 64) + 64 + 1
+# phase 5c: adam_epochs and lbfgs_epochs of the recipe, cut from 4,000 each
+# (200 L-BFGS iterations per round), and the bar for rel-L2 at that budget.
+# At 300 / 600 the run fails the bar by design of the method, not by a
+# fault: after 300 Adam steps the hidden basis is nearly rank-deficient, the
+# float64 last-layer solve lands on large cancelling weights, and their
+# float32 cast is useless (rel-L2 1.7; the reference package does the same)
+P3D_ADAM = 1000
+P3D_LBFGS = 1200
+P3D_REL_L2 = 1e-3
 QUEUED = 100        # back-to-back launches timed behind a long kernel
 # the card's published peaks (H100 SXM data sheet): fp32 outside the tensor
 # cores, HBM3 bandwidth
@@ -205,6 +248,12 @@ def kernel_cases():
          (0.0, 0.0, -1.0), (1.0, two_pi, 1.0),
          taylor.plan_streams([(i, j) for i in range(3) for j in range(i, 3)]),
          32_768),
+        ("poisson_3d 5x64 tanh, the recipe's batch", p3d_spec(),
+         net.feature_map_for(("minmax",) * 3), (0.0,) * 3, (1.0,) * 3, IDX7,
+         P3D_N),
+        ("poisson_3d 5x64 tanh, the recipe's L-BFGS grid", p3d_spec(),
+         net.feature_map_for(("minmax",) * 3), (0.0,) * 3, (1.0,) * 3, IDX7,
+         P3D_GRID_N),
     ]
 
 
@@ -274,7 +323,8 @@ def phase_b2(dev, gen):
     from tpinn_torch.kernels import mlp_taylor, taylor_vjp
 
     # per case of kernel_cases()
-    sizes = (RECIPE_N, 1_077, RECIPE_GRID_N, 16_384, 8_192)
+    sizes = (RECIPE_N, 1_077, RECIPE_GRID_N, 16_384, 8_192, P3D_N,
+             P3D_GRID_N)
     worst_abs = 0.0
     for n, (name, spec, fm, lo, hi, streams, _) in zip(sizes, kernel_cases()):
         params = net.init_params(gen, spec, fm, dev)
@@ -324,20 +374,26 @@ def phase_b2(dev, gen):
     # engine against the plain engine and the generic jvp engine
     from tpinn_torch import problems
 
-    problem = problems.with_hard_bc(problems.annulus_laplace())
-    for n in (RECIPE_N, 1_077, RECIPE_GRID_N):
+    annulus = problems.with_hard_bc(problems.annulus_laplace())
+    cube = problems.with_hard_bc(problems.poisson_3d())
+    for problem, mspec, n in ((annulus, annulus_spec(), RECIPE_N),
+                              (annulus, annulus_spec(), 1_077),
+                              (annulus, annulus_spec(), RECIPE_GRID_N),
+                              (cube, p3d_spec(), P3D_N),
+                              (cube, p3d_spec(), P3D_GRID_N)):
         pred, compiled, params, data, lw = loss_setup(
-            problem, annulus_spec(), dev, col_only=n)
+            problem, mspec, dev, col_only=n)
         got, ref = loss_grads(pred, compiled, params, data, lw, "kernel")
         plain, _ = loss_grads(plain_engine(pred), compiled, params, data, lw,
                               "fused", ref)
         generic, _ = loss_grads(pred, compiled, params, data, lw, "generic",
                                 ref)
-        err_p = check_grads(f"hard-BC N={n}: kernel vs plain", got, plain)
-        err_g = check_grads(f"hard-BC N={n}: kernel vs generic", got, generic,
-                            STEP0_RTOL, STEP0_ATOL)
+        what = f"{problem.name} {mspec.depth}x{mspec.width}, N={n}"
+        err_p = check_grads(f"hard-BC {what}: kernel vs plain", got, plain)
+        err_g = check_grads(f"hard-BC {what}: kernel vs generic", got,
+                            generic, STEP0_RTOL, STEP0_ATOL)
         worst_abs = max(worst_abs, err_p)
-        print(f"  hard-BC residual MSE, 6x80, N={n}: max abs err vs plain "
+        print(f"  hard-BC residual MSE, {what}: max abs err vs plain "
               f"{err_p:.3e}, vs generic {err_g:.3e}")
     return worst_abs
 
@@ -387,6 +443,12 @@ def annulus_spec(width=80):
     from tpinn_torch.core import net
 
     return net.MLPSpec(depth=6, width=width)
+
+
+def p3d_spec():
+    from tpinn_torch.core import net
+
+    return net.MLPSpec(depth=5, width=64)
 
 
 def loss_setup(problem, mspec, dev, counts=None, col_only=None):
@@ -580,7 +642,6 @@ def phase_train(dev):
     from tpinn_torch import problems
     from tpinn_torch.app.serve import PINNServer
     from tpinn_torch.core.train import StageSpec, TrainSpec, run_training
-    from tpinn_torch.kernels import adam, mlp_taylor, taylor_vjp
     from tpinn_torch.utils import artifacts
 
     problem = problems.with_hard_bc(problems.annulus_laplace())
@@ -606,14 +667,13 @@ def phase_train(dev):
     out = SMOKE_DIR / "train"
     shutil.rmtree(out, ignore_errors=True)
     lines = []
-    mlp_taylor.LAUNCHES = taylor_vjp.LAUNCHES = adam.LAUNCHES = 0
+    reset_launches()
     t0 = time.perf_counter()
     res = run_training(problem, spec, output_dir=str(out),
                        log_fn=lines.append, device=dev)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"taylor2_fwd": mlp_taylor.LAUNCHES,
-                "taylor2_bwd": taylor_vjp.LAUNCHES, "adam": adam.LAUNCHES}
+    launches = read_launches()
     for line in lines:
         print(f"  | {line}")
     n_adam = [int(m.group(1)) for m in
@@ -682,22 +742,19 @@ def phase_train(dev):
 
 
 def phase_recipe(dev, card, adam_epochs=RECIPE_ADAM,
-                 lbfgs_epochs=RECIPE_LBFGS, tail_max=50):
+                 lbfgs_epochs=RECIPE_LBFGS, tail_max=50, seed=None):
     """The annulus_laplace recipe with its budgets cut, end to end: Adam
     through the kernels, three L-BFGS rounds each followed by the exact
     last-layer solve, the float64 evaluation, the Galerkin defect
     correction, the checkpoint with the correction in its meta, served.
     Returns the kernels' launch counts of the run."""
-    import dataclasses
-
     import numpy as np
     import torch
 
     from tpinn_torch import problems
     from tpinn_torch.app.serve import PINNServer
     from tpinn_torch.core import polish
-    from tpinn_torch.core.train import run_training
-    from tpinn_torch.kernels import adam, mlp_taylor, taylor_vjp
+    from tpinn_torch.kernels import mlp_taylor
     from tpinn_torch.utils import checkpoint
 
     problem, spec = problems.get_recipe("annulus_laplace")
@@ -709,48 +766,25 @@ def phase_recipe(dev, card, adam_epochs=RECIPE_ADAM,
           == RECIPE_N, "the annulus_laplace recipe is not the flagship's")
     # only the budgets are cut: Adam and L-BFGS epochs, and the Adam tail
     # (up to tail_max further steps while the loss still improves)
-    spec = dataclasses.replace(
-        spec, tail_max=tail_max,
-        stages=(dataclasses.replace(stage, adam_epochs=adam_epochs,
-                                    lbfgs_epochs=lbfgs_epochs),))
-    out = SMOKE_DIR / "recipe"
-    shutil.rmtree(out, ignore_errors=True)
-    lines = []
     tf32_before = torch.backends.cuda.matmul.allow_tf32
-    mlp_taylor.LAUNCHES = taylor_vjp.LAUNCHES = adam.LAUNCHES = 0
-    t0 = time.perf_counter()
-    res = run_training(problem, spec, output_dir=str(out),
-                       log_fn=lines.append, device=dev)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = {"taylor2_fwd": mlp_taylor.LAUNCHES,
-                "taylor2_bwd": taylor_vjp.LAUNCHES, "adam": adam.LAUNCHES}
-    for line in lines:
-        print(f"  | {line}")
+    _, spec, res, lines, launches, n_adam, _ = run_recipe_cut(
+        "annulus_laplace", dev, [(adam_epochs, lbfgs_epochs)],
+        tail_max=tail_max, seed=spec.seed if seed is None else seed)
+    out = SMOKE_DIR / "annulus_laplace"
     check(torch.backends.cuda.matmul.allow_tf32 == tf32_before,
           "adam_precision leaked out of the Adam phase")
-    n_adam = [int(m.group(1)) for m in
-              (re.search(r"Adam done \((\d+) steps", ln) for ln in lines) if m]
-    check(len(n_adam) == 1 and n_adam[0] >= adam_epochs,
-          f"Adam phase logged: {n_adam}")
-    print(f"  run_training(get_recipe('annulus_laplace'), budgets "
-          f"{adam_epochs} Adam steps + tail and {lbfgs_epochs} L-BFGS "
-          f"epochs): {seconds:.1f} s, Adam steps {n_adam[0]}, launches "
-          f"{launches}")
+    print(f"  seed {spec.seed}")
     for k, count in launches.items():
         check(count >= n_adam[0],
               f"{k} launched {count} times for {n_adam[0]} Adam steps")
 
     # the exact last-layer solve after every L-BFGS round
-    polished = [re.search(r"lsq polish objective (\S+) -> (\S+)( \(not "
-                          r"applied\))? in (\S+) s", ln) for ln in lines]
-    polished = [m for m in polished if m]
-    check(len(polished) == stage.lbfgs_rounds,
-          f"{len(polished)} lsq polish lines for {stage.lbfgs_rounds} rounds")
-    for k, m in enumerate(polished):
-        obj0, obj1, secs = (float(m.group(k)) for k in (1, 2, 4))
-        check(m.group(3) is None and obj1 <= obj0,
-              f"round {k + 1}: lsq polish {obj0} -> {obj1} {m.group(3) or ''}")
+    solves = polish_lines(lines)
+    check(len(solves) == stage.lbfgs_rounds,
+          f"{len(solves)} lsq polish lines for {stage.lbfgs_rounds} rounds")
+    for k, (obj0, obj1, applied, secs) in enumerate(solves):
+        check(applied and obj1 <= obj0,
+              f"round {k + 1}: lsq polish {obj0} -> {obj1}, applied {applied}")
         print(f"  round {k + 1}: last-layer solve on the 202,500-point grid, "
               f"objective {obj0:.4e} -> {obj1:.4e}, {secs:.2f} s wall on "
               f"{card}")
@@ -830,6 +864,293 @@ def phase_recipe(dev, card, adam_epochs=RECIPE_ADAM,
           f"{'kernel B1' if b1_grew else 'generic jvp'}, taylor2_fwd launches "
           f"+{b1_grew}")
     return launches
+
+
+def reset_launches():
+    from tpinn_torch.kernels import adam, mlp_taylor, taylor_vjp
+
+    mlp_taylor.LAUNCHES = taylor_vjp.LAUNCHES = adam.LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    from tpinn_torch.kernels import adam, mlp_taylor, taylor_vjp
+
+    return {"taylor2_fwd": mlp_taylor.LAUNCHES,
+            "taylor2_bwd": taylor_vjp.LAUNCHES, "adam": adam.LAUNCHES}
+
+
+def run_recipe_cut(name, dev, budgets, **spec_kw):
+    """get_recipe(name) with stage k's (adam_epochs, lbfgs_epochs) set to
+    budgets[k] and the TrainSpec fields of ``spec_kw`` replaced, through
+    run_training on the card with the launch counts reset before and read
+    after.  Returns (problem, spec, result, log lines, launches, Adam steps
+    per stage, seconds)."""
+    import dataclasses
+
+    import torch
+
+    from tpinn_torch import problems
+    from tpinn_torch.core.train import run_training
+
+    problem, spec = problems.get_recipe(name)
+    check(len(budgets) == len(spec.stages), f"{name}: one budget per stage")
+    spec = dataclasses.replace(
+        spec, stages=tuple(dataclasses.replace(st, adam_epochs=a,
+                                               lbfgs_epochs=b)
+                           for st, (a, b) in zip(spec.stages, budgets)),
+        **spec_kw)
+    out = SMOKE_DIR / name
+    shutil.rmtree(out, ignore_errors=True)
+    lines = []
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run_training(problem, spec, output_dir=str(out),
+                       log_fn=lines.append, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    for line in lines:
+        print(f"  | {line}")
+    n_adam = [int(m.group(1)) for m in
+              (re.search(r"Adam done \((\d+) steps", ln) for ln in lines) if m]
+    check(len(n_adam) == len(budgets)
+          and all(n >= a for n, (a, _) in zip(n_adam, budgets)),
+          f"{name}: Adam phases logged {n_adam} for budgets {budgets}")
+    check(launches["adam"] == sum(n_adam),
+          f"{name}: adam launched {launches['adam']} times for "
+          f"{sum(n_adam)} Adam steps")
+    check(res.rel_l2 is not None and math.isfinite(res.rel_l2),
+          f"{name}: rel-L2 {res.rel_l2}")
+    print(f"  run_training(get_recipe({name!r}), budgets {budgets}): "
+          f"{seconds:.1f} s, Adam steps {n_adam}, launches {launches}, "
+          f"rel-L2 {res.rel_l2:.4e}")
+    return problem, spec, res, lines, launches, n_adam, seconds
+
+
+def polish_lines(lines):
+    """(pre, post, applied, seconds) of every last-layer solve logged."""
+    found = [re.search(r"lsq polish objective (\S+) -> (\S+)( \(not "
+                       r"applied\))? in (\S+) s", ln) for ln in lines]
+    return [(float(m.group(1)), float(m.group(2)), m.group(3) is None,
+             float(m.group(4))) for m in found if m]
+
+
+def phase_poisson3d(dev, card, adam_epochs=P3D_ADAM, lbfgs_epochs=P3D_LBFGS,
+                    tail_max=50, density_every=100, plateau_every=200):
+    """The poisson_3d recipe end to end at d = 3: the step-0 gradient
+    check, Adam through the kernels with the n-D sampler and density, two
+    L-BFGS rounds on the 24^3 grid each followed by the last-layer solve,
+    the 48^3 float64 evaluation, the checkpoint served.  The defaults cut
+    the budgets; (4000, 4000, 4000, 2000, 4000) is the recipe as written.
+    Returns the kernels' launch counts of the run."""
+    import numpy as np
+    import torch
+
+    from tpinn_torch import problems
+    from tpinn_torch.app.serve import PINNServer
+    from tpinn_torch.kernels import mlp_taylor
+
+    problem, spec = problems.get_recipe("poisson_3d")
+    stage = spec.stages[0]
+    check((stage.depth, stage.width, stage.lbfgs_grid, stage.lbfgs_rounds,
+           spec.grid, spec.testing_size, spec.lsq_polish, spec.deflation)
+          == (5, 64, 24, 2, 31, (48, 48, 48), "auto", "off")
+          and problem.hard_bc is not None
+          and spec.n_col + spec.n_band + spec.n_adaptive + 6 * spec.n_bd
+          == P3D_N, "the poisson_3d recipe is not the one this phase expects")
+
+    pred, compiled, params, data, lw = loss_setup(problem, p3d_spec(), dev,
+                                                  counts=P3D_COUNTS)
+    check(data["x_col"].shape == (P3D_N, 3), "poisson_3d batch shape")
+    check(sorted(compiled.indices, key=lambda t: (len(t), t))
+          == [(0, 0), (1, 1), (2, 2)], "poisson_3d residual indices")
+    got, ref = loss_grads(pred, compiled, params, data, lw, "kernel")
+    generic, _ = loss_grads(pred, compiled, params, data, lw, "generic", ref)
+    err = check_grads("poisson_3d step-0 gradient, kernel vs generic engine",
+                      got, generic, STEP0_RTOL, STEP0_ATOL)
+    print(f"  step-0 gradient of the full loss (5x64 hard-BC, N={P3D_N}, "
+          f"S=7): kernel vs generic engine max abs err {err:.3e} (rtol "
+          f"{STEP0_RTOL}, atol {STEP0_ATOL})")
+
+    _, spec, res, lines, launches, n_adam, seconds = run_recipe_cut(
+        "poisson_3d", dev, [(adam_epochs, lbfgs_epochs)], tail_max=tail_max,
+        density_every=density_every, plateau_every=plateau_every)
+    for k, count in launches.items():
+        check(count >= n_adam[0],
+              f"{k} launched {count} times for {n_adam[0]} Adam steps")
+    check(any(f"deterministic 24^3 grid ({P3D_GRID_N} pts)" in ln
+              for ln in lines), "the L-BFGS grid is not 24^3")
+    h = res.stages[0].history
+    print(f"  loss {h[0, 0]:.4e} -> {h[n_adam[0] - 1, 0]:.4e} over Adam "
+          f"({h[0, 0] / h[n_adam[0] - 1, 0]:.2f}x), {h[-1, 0]:.4e} after "
+          f"the last L-BFGS round; "
+          f"{seconds / max(1, n_adam[0]) * 1e3:.0f} ms of run per Adam step "
+          f"at most, on {card}")
+    check(h[n_adam[0] - 1, 0] < h[0, 0], "the Adam phase did not lower the loss")
+    solves = polish_lines(lines)
+    check(len(solves) == stage.lbfgs_rounds,
+          f"{len(solves)} lsq polish lines for {stage.lbfgs_rounds} rounds")
+    for k, (obj0, obj1, applied, secs) in enumerate(solves):
+        check(obj1 <= obj0, f"round {k + 1}: lsq polish {obj0} -> {obj1}")
+        print(f"  round {k + 1}: last-layer solve at d = 3 on the "
+              f"{P3D_GRID_N}-point grid, objective {obj0:.4e} -> {obj1:.4e}"
+              f"{'' if applied else ' (not applied)'}, {secs:.2f} s wall on "
+              f"{card}")
+    check(solves[0][2], "the first last-layer solve was not applied")
+    # the history's last row precedes the last solve; the solve's own
+    # objective (lw0 * mean r^2 on the grid) is the loss where the run ends
+    check(solves[-1][1] < 0.1 * h[0, 0],
+          f"loss {h[0, 0]:.3e} -> {solves[-1][1]:.3e} after the last solve: "
+          f"drop < 10x")
+    check(res.stages[0].U.shape == (48 ** 3, 1), "evaluation grid shape")
+    print(f"  rel-L2 on the 48^3 grid {res.rel_l2:.4e} (bar {P3D_REL_L2:g} at "
+          f"this budget; tpinn's TPU v5e record at 4,000 + 4,000: 8.9e-6)")
+    check(res.rel_l2 <= P3D_REL_L2, f"rel-L2 {res.rel_l2} above {P3D_REL_L2}")
+
+    # the 3-coordinate checkpoint, served
+    out = SMOKE_DIR / "poisson_3d"
+    check((out / "params_stage_1.npz").exists() and (out / "loss_1.npz").exists(),
+          "poisson_3d checkpoint or loss history missing")
+    srv = PINNServer(str(out / "params_stage_1.npz"), "poisson_3d", device=dev)
+    rng = np.random.default_rng(SEED)
+    pts = rng.uniform(0.0, 1.0, (1_000, 3)).astype(np.float32)
+    with http_server(srv) as base:
+        u = np.asarray(post(base, "/predict", pts.tolist())["u"])
+        before = mlp_taylor.LAUNCHES
+        f = np.asarray(post(base, "/residual", pts.tolist())["f"])
+        grew = mlp_taylor.LAUNCHES - before
+        faces = np.asarray(post(base, "/predict", [
+            [0.0, 0.3, 0.7], [1.0, 0.2, 0.9], [0.4, 0.0, 0.1],
+            [0.6, 1.0, 0.5], [0.8, 0.3, 0.0], [0.1, 0.9, 1.0]])["u"])
+    z = torch.from_numpy(pts).to(dev)
+    with torch.no_grad():
+        want = res.predict(z)[:, 0].cpu().numpy()
+        f_plain = srv.compiled.evaluate(
+            z, plain_partials(srv.predictor, srv.params, z,
+                              srv.compiled.indices))[:, 0].cpu().numpy()
+    f_train = srv.compiled.residual(res.predict, z)[:, 0].detach().cpu().numpy()
+    err_u = float(np.abs(u - want).max())
+    err_f = float(np.abs(f - f_plain).max())
+    err_g = float(np.abs(f - f_train).max())
+    scale_f = float(np.abs(f_train).max())
+    check(u.shape == (1_000,) and f.shape == (1_000,)
+          and bool(np.isfinite(u).all() and np.isfinite(f).all()),
+          "served poisson_3d answers: shape or values")
+    check(np.allclose(u, want, rtol=1e-5, atol=1e-6),
+          f"served /predict vs the trainer's predictor: max err {err_u}")
+    check(np.allclose(f, f_plain, rtol=RES_RTOL, atol=RES_ATOL),
+          f"served /residual vs the plain version: max err {err_f}")
+    # against the trainer's residual through the generic jvp engine: two
+    # float32 engines on second derivatives, held relative to the field
+    check(err_g <= RES_RTOL * scale_f + RES_ATOL,
+          f"served /residual vs the trainer's residual: max err {err_g}, "
+          f"max |f| {scale_f}")
+    check(grew > 0, "served /residual at 3-coordinate points launched no kernel")
+    check(float(np.abs(faces).max()) <= 1e-6,
+          f"hard-BC values on the cube's faces: {np.abs(faces).max()}")
+    print(f"  params_stage_1.npz served at 1,000 3-coordinate points: "
+          f"/predict equals the trainer's predictor (max abs difference "
+          f"{err_u:.2e}); /residual equals the plain version ({err_f:.2e}) "
+          f"and the trainer's residual ({err_g:.2e}, max |f| {scale_f:.3e}), "
+          f"taylor2_fwd launches +{grew}; |u| on the six faces <= "
+          f"{np.abs(faces).max():.1e}")
+    return launches
+
+
+def phase_other_paths(dev, card):
+    """The other recipes' code paths (Fourier stages, a nonlinear equation,
+    a masked domain, order 3), each at a cut budget.  Returns {recipe:
+    launches}."""
+    import numpy as np
+
+    cadence = dict(tail_max=20, density_every=100, plateau_every=200)
+    by_path = {}
+
+    # helmholtz_2d: Fourier features, so the generic engine by structure
+    _, spec, res, lines, launches, n_adam, _ = run_recipe_cut(
+        "helmholtz_2d", dev, [(100, 90), (100, 90)], **cadence)
+    check(all(st.fourier_features == 64 for st in spec.stages)
+          and spec.stages[1].init_from == "prev" and spec.stages[0].equation
+          and spec.lw == (1e-4, 0.0) and spec.adam_precision is None,
+          "the helmholtz_2d recipe is not the one this phase expects")
+    check(launches["taylor2_fwd"] == 0 and launches["taylor2_bwd"] == 0,
+          f"helmholtz_2d (Fourier features) launched B1/B2: {launches}")
+    check(any("equation override" in ln for ln in lines)
+          and any("warm start from stage 1" in ln for ln in lines),
+          "helmholtz_2d: no equation override or warm start logged")
+    for k, st in enumerate(res.stages):
+        check(sorted(st.params) == ["fourier_b", "layers"],
+              f"helmholtz_2d stage {k + 1} params {sorted(st.params)}")
+        check(st.history[-1, 0] < st.history[0, 0],
+              f"helmholtz_2d stage {k + 1} loss did not fall")
+        print(f"  helmholtz_2d stage {k + 1}: loss {st.history[0, 0]:.4e} -> "
+              f"{st.history[-1, 0]:.4e}")
+    for obj0, obj1, _, _ in polish_lines(lines):
+        check(obj1 <= obj0, f"helmholtz_2d lsq polish {obj0} -> {obj1}")
+    print(f"  helmholtz_2d: route generic jvp (taylor2_fwd +0, taylor2_bwd "
+          f"+0, adam +{launches['adam']}), {len(polish_lines(lines))} "
+          f"last-layer solves on the Fourier basis, on {card}")
+    by_path["helmholtz_2d"] = launches
+
+    # burgers_1d: nonlinear, two composed stages, the Newton correction (at
+    # 150 / 90 per stage and at 1,000 / 600 its own guard declines it)
+    _, spec, res, lines, launches, n_adam, _ = run_recipe_cut(
+        "burgers_1d", dev, [(400, 300), (400, 300)], **cadence)
+    check(sum("lsq_polish skipped (equation nonlinear in u)" in ln
+              for ln in lines) == 2 and not polish_lines(lines),
+          "burgers_1d: the last-layer solve was not skipped in both stages")
+    check(launches["taylor2_fwd"] >= sum(n_adam)
+          and launches["taylor2_bwd"] >= sum(n_adam),
+          f"burgers_1d: both stages should ride B1/B2: {launches}")
+    with np.load(SMOKE_DIR / "burgers_1d" / "params_stage_2.npz") as raw:
+        meta = json.loads(bytes(raw["__meta__"]).decode())
+    defl = meta["deflation"]
+    said = [ln for ln in lines if ln.startswith("deflation='full'")]
+    check(len(said) == 1, "burgers_1d: no deflation line logged")
+    if defl is None:
+        check("no applicable correction" in said[0], said[0])
+        print(f"  burgers_1d: the correction declined by its own guard "
+              f"({said[0]}); rel-L2 {res.rel_l2:.4e}")
+    else:
+        check(defl["kind"] == "galerkin", f"burgers_1d kind {defl['kind']}")
+        print(f"  burgers_1d: correction kind {defl['kind']} (Newton step), "
+              f"{len(defl['modes'])} modes, resid_drop "
+              f"{defl['resid_drop']:.4e}; rel-L2 before "
+              f"{defl['rel_l2_before']:.4e}, after {res.rel_l2:.4e}")
+        check(res.rel_l2 <= defl["rel_l2_before"],
+              f"burgers_1d: rel-L2 {defl['rel_l2_before']} -> {res.rel_l2}")
+    h1 = res.stages[0].history
+    check(h1[-1, 0] < 0.1 * h1[0, 0], "burgers_1d stage-1 loss drop < 10x")
+    by_path["burgers_1d"] = launches
+
+    # lshape_laplace: the masked domain; polish and deflation asked for so
+    # that their skips show (the recipe leaves both off)
+    problem, spec, res, lines, launches, n_adam, _ = run_recipe_cut(
+        "lshape_laplace", dev, [(150, 90)], lsq_polish="auto",
+        deflation="full", **cadence)
+    check(problem.eval_mask is not None, "lshape_laplace has no mask")
+    for text in ("lsq_polish skipped (masked non-box domain)",
+                 "deflation skipped: masked non-box domain",
+                 "final rel-L2 vs analytic (masked, "):
+        check(any(text in ln for ln in lines), f"lshape_laplace: no {text!r}")
+    h = res.stages[0].history
+    check(h[-1, 0] < h[0, 0], "lshape_laplace loss did not fall")
+    check(launches["taylor2_fwd"] >= n_adam[0], f"lshape_laplace: {launches}")
+    print(f"  lshape_laplace: skips logged, masked rel-L2 {res.rel_l2:.4e}, "
+          f"loss {h[0, 0]:.4e} -> {h[-1, 0]:.4e}")
+    by_path["lshape_laplace"] = launches
+
+    # kdv_1d: order 3, the generic engine
+    _, spec, res, lines, launches, n_adam, _ = run_recipe_cut(
+        "kdv_1d", dev, [(150, 90)], **cadence)
+    check(launches["taylor2_fwd"] == 0 and launches["taylor2_bwd"] == 0,
+          f"kdv_1d (order 3) launched B1/B2: {launches}")
+    h = res.stages[0].history
+    check(h[-1, 0] < h[0, 0], "kdv_1d loss did not fall")
+    print(f"  kdv_1d: route generic jvp (order 3), loss {h[0, 0]:.4e} -> "
+          f"{h[-1, 0]:.4e}, rel-L2 {res.rel_l2:.4e}")
+    by_path["kdv_1d"] = launches
+    return by_path
 
 
 def queued_ms(fn, blocker) -> float:
@@ -919,13 +1240,15 @@ def phase_timing_train(dev):
     from tpinn_torch import problems
     from tpinn_torch.core import loss as loss_mod
     from tpinn_torch.core import net
-    from tpinn_torch.kernels import adam, taylor_vjp
+    from tpinn_torch.kernels import adam, mlp_taylor, taylor_vjp
 
     out = {}
     shapes = (("recipe", problems.with_hard_bc(problems.annulus_laplace()),
                annulus_spec(80), RECIPE_COUNTS),
               ("bench", problems.annulus_laplace(), annulus_spec(60),
-               BENCH_COUNTS))
+               BENCH_COUNTS),
+              ("poisson_3d", problems.with_hard_bc(problems.poisson_3d()),
+               p3d_spec(), P3D_COUNTS))
     for label, problem, mspec, counts in shapes:
         pred, compiled, params, data, lw = loss_setup(problem, mspec, dev,
                                                       counts=counts)
@@ -965,6 +1288,27 @@ def phase_timing_train(dev):
     print(f"  taylor2_bwd alone N={RECIPE_N} S=5 6x80: kernel {k_ms:.3f} ms "
           f"({n_flop / k_ms / 1e9:.2f} TFLOP/s fp32 on the hidden layers), "
           f"plain {p_ms:.3f} ms (CUDA events, median of {TIMED_RUNS})")
+
+    # B1 and B2 alone at poisson_3d's batch: the raw 5x64 net under the
+    # 3-D hard-BC residual's stream set
+    spec, fm = p3d_spec(), net.feature_map_for(("minmax",) * 3)
+    lo, hi = (0.0,) * 3, (1.0,) * 3
+    gen = torch.Generator().manual_seed(SEED)
+    params = net.init_params(gen, spec, fm, dev)
+    z = box_points(gen, P3D_N, lo, hi, dev)
+    ct = torch.randn((P3D_N, len(IDX7)), generator=gen).to(dev)
+    fwd = (params, z, spec, fm, lo, hi, IDX7)
+    bwd = (params["layers"], z, ct, spec, fm, lo, hi, IDX7)
+    out["taylor2_fwd_3d"] = (
+        event_ms(lambda: mlp_taylor.taylor2_streams(*fwd)),
+        event_ms(lambda: mlp_taylor.taylor2_streams_reference(*fwd)))
+    out["taylor2_bwd_3d"] = (
+        event_ms(lambda: taylor_vjp.taylor2_backward(*bwd)),
+        event_ms(lambda: taylor_vjp.taylor2_backward_reference(*bwd)))
+    for name in ("taylor2_fwd_3d", "taylor2_bwd_3d"):
+        print(f"  {name[:-3]} alone N={P3D_N} S=7 5x64: kernel "
+              f"{out[name][0]:.4f} ms, plain {out[name][1]:.4f} ms (CUDA "
+              f"events, median of {TIMED_RUNS})")
 
     # B3 alone on the 6x80 net's parameter count
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1115,8 +1459,14 @@ def main() -> int:
     phase("5. train (the second slice's path)")
     train_launches = phase_train(dev)
 
-    phase("5b. recipe (this slice's main path)")
-    launches = phase_recipe(dev, card)
+    phase("5b. recipe (the flagship recipe's path)")
+    recipe_launches = phase_recipe(dev, card)
+
+    phase("5c. poisson_3d (the 3-D training path)")
+    launches = phase_poisson3d(dev, card)
+
+    phase("5d. the other recipes' paths")
+    other_launches = phase_other_paths(dev, card)
 
     phase("6. timing")
     times = phase_timing(dev, gen, servers)
@@ -1125,7 +1475,7 @@ def main() -> int:
         k_ms, p_ms = times[f"residual_{n}"]
         print(f"  residual N={n}: kernel {k_ms:.3f} ms vs plain {p_ms:.3f} ms "
               f"on {card}")
-    for label in ("recipe", "bench"):
+    for label in ("recipe", "bench", "poisson_3d"):
         k_ms, p_ms = times[f"step_{label}"]
         print(f"  Adam step ({label}): kernel engine {k_ms:.3f} ms vs plain "
               f"{p_ms:.3f} ms on {card}")
@@ -1143,6 +1493,13 @@ def main() -> int:
         "taylor2_bwd": (4 * (RECIPE_N * (2 + len(IDX5)) + 2 * ADAM_N),
                         3 * RECIPE_N * per_point),
         "adam": (4 * 7 * ADAM_N, 16 * ADAM_N)}
+    # the same at poisson_3d's batch: 5x64 on 3 features, S = 7
+    per_point_3d = 2 * len(IDX7) * (3 * 64 + 4 * 64 * 64 + 64)
+    work_3d = {
+        "taylor2_fwd": (4 * (P3D_N * (3 + len(IDX7)) + P3D_PARAMS),
+                        P3D_N * per_point_3d),
+        "taylor2_bwd": (4 * (P3D_N * (3 + len(IDX7)) + 2 * P3D_PARAMS),
+                        3 * P3D_N * per_point_3d)}
     l_ms, kq_ms, lq_ms = times["adam_library"]
     rows = (("taylor2_fwd", "taylor2_fwd", "tpinn/kernels/mlp_taylor.py:155",
              err_fwd, times["kernel_alone"], None, {}),
@@ -1156,6 +1513,18 @@ def main() -> int:
         n_bytes, n_ops = work[src]
         t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
         t_ops = n_ops / PEAK_FP32_FLOPS * 1e3
+        if src in work_3d:
+            b3, o3 = work_3d[src]
+            bound_3d = max(b3 / PEAK_BYTES_PER_S, o3 / PEAK_FP32_FLOPS) * 1e3
+            k3, p3 = times[f"{src}_3d"]
+            extra = {**extra, "poisson_3d_batch": {
+                "N": P3D_N, "S": len(IDX7), "ms": k3, "plain_ms": p3,
+                "bound_ms": bound_3d,
+                "bound_by": ("bytes" if b3 / PEAK_BYTES_PER_S
+                             >= o3 / PEAK_FP32_FLOPS else "operations")}}
+            print(f"  {name} at N={P3D_N} S=7 5x64: {k3:.4f} ms, bound "
+                  f"{bound_3d:.5f} ms ({100 * bound_3d / k3:.1f}% of the "
+                  f"time), plain {p3:.4f} ms, on {card}")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"tpinn_torch/kernels/csrc/{src}.cu", "replaces": where,
@@ -1167,11 +1536,14 @@ def main() -> int:
             "launches_by_path": {"serve": serve_launches if src ==
                                  "taylor2_fwd" else 0,
                                  "train": train_launches[src],
-                                 "recipe": launches[src]}, **extra})
+                                 "recipe": recipe_launches[src],
+                                 "poisson_3d": launches[src],
+                                 **{k: v[src] for k, v in
+                                    other_launches.items()}}, **extra})
         print(f"  {name}: {k_ms:.4f} ms, bound {kernels[-1]['bound_ms']:.5f} "
               f"ms by {kernels[-1]['bound_by']} "
               f"({100 * kernels[-1]['bound_ms'] / k_ms:.1f}% of the time), "
-              f"launches on the recipe path {launches[src]}, on {card}")
+              f"launches on the poisson_3d path {launches[src]}, on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,6 +3,13 @@
 Inputs are drawn with numpy from a seed; JAX parameters are carried into
 the port with params_from_numpy, so both packages see identical weights.
 Tolerance for u and its partials (f32 on the CPU): rtol 1e-4, atol 1e-5.
+
+The random-Fourier-feature and modified-MLP families: float64 outputs and
+partials rtol 1e-10 (atol 1e-12 of the stream's max); float32 per stream
+max |diff| <= 1e-4 * max |ref| (second derivatives carry B² and the two
+packages' float32 cos/sin differ in the last bits, so they are held
+relative to the stream's max, not elementwise).  The flat Adam step on
+such a tree: rtol 1e-5, atol 1e-6 per leaf, as tests/test_torch_optim.py.
 """
 
 import jax
@@ -117,14 +124,34 @@ def test_init_statistics():
 
 
 def test_other_families_not_ported():
+    """The Fourier and modified families ARE ported now: they initialise
+    with tpinn's tree (keys, shapes, fourier_b's scale), build a
+    predictor, and advertise no kernel partials."""
     fm = tnet.feature_map_for(("identity", "identity"))
-    gen = torch.Generator().manual_seed(0)
-    for spec in (tnet.MLPSpec(depth=2, width=8, fourier_features=4),
-                 tnet.MLPSpec(depth=2, width=8, modified=True)):
-        with pytest.raises(NotImplementedError, match="Queue A item 4"):
-            tnet.init_params(gen, spec, fm, "cpu")
-        with pytest.raises(NotImplementedError):
-            tnet.make_predictor(spec, fm, torch.zeros(2), torch.ones(2))
+    fm_j = jnet.feature_map_for(("identity", "identity"))
+    for kw in (dict(depth=2, width=8, fourier_features=4, fourier_scale=3.0),
+               dict(depth=2, width=8, modified=True),
+               dict(depth=3, width=8, fourier_features=5, modified=True)):
+        spec = tnet.MLPSpec(**kw)
+        p = tnet.init_params(torch.Generator().manual_seed(0), spec, fm, "cpu")
+        p_j = jnet.init_params(jax.random.PRNGKey(0), jnet.MLPSpec(**kw), fm_j)
+        assert sorted(p) == sorted(p_j)
+        shapes = lambda t: [tuple(x.shape) for x in
+                            jax.tree_util.tree_leaves(t)]
+        assert shapes(params_to_numpy(p)) == shapes(p_j)
+        pred = tnet.make_predictor(spec, fm, torch.zeros(2), torch.ones(2))
+        assert not hasattr(pred, "tpinn_partials")
+        assert tuple(pred(p, torch.rand(7, 2)).shape) == (7, 1)
+        again = tnet.init_params(torch.Generator().manual_seed(0), spec, fm,
+                                 "cpu")
+        assert all(torch.equal(a, b) for a, b in zip(
+            jax.tree_util.tree_leaves(p), jax.tree_util.tree_leaves(again)))
+    big = tnet.init_params(
+        torch.Generator().manual_seed(1),
+        tnet.MLPSpec(depth=1, width=4, fourier_features=2000,
+                     fourier_scale=10.0), fm, "cpu")["fourier_b"]
+    assert tuple(big.shape) == (2, 2000)
+    assert 9.5 < float(big.std()) < 10.5 and abs(float(big.mean())) < 0.5
 
 
 def test_compose_stages_matches_jax_and_freezes_prev():
@@ -265,3 +292,230 @@ def test_dispatch_by_structure():
     got3 = ttaylor.fast_partials(pred_t, p_t, torch.from_numpy(z),
                                  [(0, 0, 1)], 3)
     assert set(got3) == {(0, 0, 1)}
+
+
+# ---------------------------------------------------------------------------
+# The random-Fourier-feature and modified-MLP families
+# ---------------------------------------------------------------------------
+
+FAMILIES = {
+    "fourier": dict(depth=2, width=16, fourier_features=8, fourier_scale=10.0),
+    "modified": dict(depth=3, width=12, modified=True, act_first="sin",
+                     scl=2.0, epsil=0.7),
+    "fourier+modified": dict(depth=2, width=12, fourier_features=6,
+                             fourier_scale=3.0, modified=True),
+}
+F64_RTOL, F32_REL = 1e-10, 1e-4
+
+
+def _family(name, dtype, pad_to=3, kinds=("minmax", "minmax")):
+    """JAX and port predictors of one family on tpinn's parameters."""
+    kw = FAMILIES[name]
+    lb, ub = (0.0,) * len(kinds), (1.0,) * len(kinds)
+    fm_j = jnet.feature_map_for(kinds, pad_to=pad_to)
+    spec_j = jnet.MLPSpec(**kw)
+    p_j = jnet.init_params(jax.random.PRNGKey(7), spec_j, fm_j,
+                           jnp.float64 if dtype == torch.float64
+                           else jnp.float32)
+    pred_j = jnet.make_predictor(spec_j, fm_j, jnp.asarray(lb), jnp.asarray(ub))
+    spec_t = tnet.MLPSpec(**kw)
+    fm_t = tnet.feature_map_for(kinds, pad_to=pad_to)
+    pred_t = tnet.make_predictor(spec_t, fm_t, torch.tensor(lb, dtype=dtype),
+                                 torch.tensor(ub, dtype=dtype))
+    return (spec_j, fm_j, pred_j, p_j, spec_t, fm_t, pred_t,
+            params_from_numpy(p_j, "cpu", dtype), lb, ub)
+
+
+def _stream_close(got, want, dtype, msg=""):
+    got, want = got.detach().numpy(), np.asarray(want)
+    assert got.shape == want.shape, msg
+    scale = float(np.abs(want).max())
+    if dtype == torch.float64:
+        np.testing.assert_allclose(got, want, rtol=F64_RTOL,
+                                   atol=1e-12 * scale, err_msg=msg)
+    else:
+        assert float(np.abs(got - want).max()) <= F32_REL * scale, msg
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("name", list(FAMILIES))
+def test_families_match_jax(name, dtype):
+    """mlp_hidden, mlp_apply and the predictor on tpinn's parameters."""
+    from tpinn.utils.x64 import force_x64
+
+    with force_x64():
+        (spec_j, fm_j, pred_j, p_j, spec_t, fm_t, pred_t, p_t, lb,
+         ub) = _family(name, dtype)
+        z = _points(90, lb, ub).astype(np.float64 if dtype == torch.float64
+                                       else np.float32)
+        zt, zj = torch.from_numpy(z), jnp.asarray(z)
+        h_t = fm_t(zt, torch.tensor(lb, dtype=dtype),
+                   torch.tensor(ub, dtype=dtype))
+        h_j = fm_j(zj, jnp.asarray(lb), jnp.asarray(ub))
+        hid = tnet.mlp_hidden(p_t, h_t, spec_t)
+        assert tuple(hid.shape) == (90, spec_t.width) and hid.dtype == dtype
+        _stream_close(hid, jnet.mlp_hidden(p_j, h_j, spec_j), dtype, "hidden")
+        _stream_close(tnet.mlp_apply(p_t, h_t, spec_t),
+                      jnet.mlp_apply(p_j, h_j, spec_j), dtype, "apply")
+        _stream_close(pred_t(p_t, zt), pred_j(p_j, zj), dtype, "predictor")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("name", ["fourier", "fourier+modified"])
+def test_fourier_partials_match_jax(name, dtype):
+    """u and its partials up to order 2 by the generic engine, which is
+    where dispatch sends these families."""
+    from tpinn.utils.x64 import force_x64
+
+    with force_x64():
+        (_, _, pred_j, p_j, _, _, pred_t, p_t, lb, ub) = _family(name, dtype)
+        z = _points(120, lb, ub).astype(np.float64 if dtype == torch.float64
+                                        else np.float32)
+        want = jderiv.partials(lambda zz: pred_j(p_j, zz), jnp.asarray(z), IDX)
+        got = ttaylor.fast_partials(pred_t, p_t, torch.from_numpy(z), IDX, 2)
+        assert set(got) == set(IDX)
+        for ix in IDX:
+            _stream_close(got[ix], want[ix], dtype, str(ix))
+        if name == "fourier":   # B² rides the second derivatives
+            assert (float(got[(0, 0)].abs().max())
+                    > 30.0 * float(got[()].abs().max()))
+
+
+def test_families_dispatch_by_structure():
+    """Neither family advertises kernel partials, alone or under a hard-BC
+    wrapper or in a chain, so every engine choice lands on the generic
+    jvp; engine='kernel' is refused by structure; a plain net still
+    advertises them."""
+    from tpinn_torch.core import loss as tloss
+    from tpinn_torch.kernels import mlp_taylor
+
+    lift = tpde.compile_coord_expr("0", ("x", "y"))
+    bub = tpde.compile_coord_expr("x*(1 - x)*y*(1 - y)", ("x", "y"))
+    compiled = tpde.compile_pde("u_xx + u_yy", ("x", "y"))
+    plain = _family("fourier", torch.float32)[6]
+    for name in FAMILIES:
+        (_, _, _, _, spec_t, fm_t, pred_t, p_t, lb, ub) = _family(
+            name, torch.float32)
+        assert not spec_t.is_plain and not mlp_taylor.supports(spec_t, fm_t)
+        hard = tnet.wrap_hard_bc(pred_t, lift, bub)
+        chain = tnet.compose_stages(pred_t, tnet.MLPSpec(depth=2, width=8),
+                                    fm_t, torch.tensor(lb), torch.tensor(ub))
+        for pred in (pred_t, hard, chain):
+            assert not hasattr(pred, "tpinn_partials")
+            assert tloss.kernel_engine_unavailable(pred, False) is not None
+        with pytest.raises(ValueError, match="plain dense"):
+            tloss.make_loss(pred_t, compiled, engine="kernel")
+        z = torch.from_numpy(_points(40, lb, ub))
+        fast = compiled.residual_fast(hard, p_t, z)
+        generic = compiled.residual(lambda zz: hard(p_t, zz), z)
+        assert torch.equal(fast, generic)
+        with pytest.raises(ValueError, match="plain dense"):
+            ttaylor.taylor2_mlp(p_t, z, spec_t, fm_t, torch.tensor(lb),
+                                torch.tensor(ub), IDX)
+    _, _, pred_plain, _ = _both(dict(depth=2, width=16))
+    assert hasattr(pred_plain, "tpinn_partials") and plain is not None
+    assert tloss.kernel_engine_unavailable(pred_plain, False) is None
+
+
+@pytest.mark.parametrize("name", list(FAMILIES))
+def test_flat_adam_step_on_family_tree_matches_tpinn(name):
+    """Five steps of the flat-layout Adam phase on a tree that holds
+    fourier_b and the gates beside the layers: every leaf equal to
+    tpinn's, in JAX's flattening order (dict keys sorted)."""
+    from tpinn.core import optim as jopt
+    from tpinn_torch.core import optim as topt
+
+    (_, _, pred_j, p_j, _, _, pred_t, p_t, lb, ub) = _family(
+        name, torch.float32)
+    z = _points(64, lb, ub)
+    target = np.sin(3.0 * z[:, 0:1]) * z[:, 1:2]
+    dj = {"z": jnp.asarray(z), "y": jnp.asarray(target)}
+    dt = {"z": torch.from_numpy(z), "y": torch.from_numpy(target)}
+
+    def loss_j(p, data, lw, ref):
+        loss = jnp.mean((pred_j(p, data["z"]) - data["y"]) ** 2)
+        return loss / ref, jnp.stack([loss, loss, loss])
+
+    def loss_t(p, data, lw, ref):
+        loss = torch.mean((pred_t(p, data["z"]) - data["y"]) ** 2)
+        return loss / ref, torch.stack([loss, loss, loss])
+
+    cfg = dict(epochs=5, lr=1e-2, tail_max=0, plateau_every=0)
+    rj = jopt.make_adam_phase(loss_j, None, None, jopt.AdamConfig(**cfg), 3)(
+        jax.random.PRNGKey(0), p_j, dj, jnp.ones((3, 3)), jnp.array([1.0]),
+        jnp.array(1.0))
+    rt = topt.make_adam_phase(loss_t, None, None, topt.AdamConfig(**cfg), 3)(
+        torch.Generator().manual_seed(0), p_t, dt, torch.ones(3, 3),
+        torch.tensor([1.0]), torch.tensor(1.0))
+    keys = sorted(p_t)
+    assert keys == sorted(rt.params) and keys[-1] == "layers"
+    assert keys[0] == ("fourier_b" if "fourier" in name else "gate_u")
+    flat, unravel = topt.ravel_tree(p_t)
+    first = topt.tree_leaves(p_t)[0]
+    assert torch.equal(flat[:first.numel()].view(first.shape), first)
+    assert torch.equal(topt.tree_leaves(unravel(flat))[-1],
+                       p_t["layers"][-1]["w"])
+    np.testing.assert_allclose(rt.history[:5].numpy(),
+                               np.asarray(rj.history)[:5], rtol=1e-5, atol=1e-6)
+    leaves_j = jax.tree_util.tree_leaves(rj.params)
+    leaves_t = topt.tree_leaves(rt.params)
+    assert len(leaves_j) == len(leaves_t)
+    moved = 0.0
+    for a, b, b0 in zip(leaves_j, leaves_t, topt.tree_leaves(p_t)):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-5,
+                                   atol=1e-6)
+        moved = max(moved, float((b - b0).abs().max()))
+    assert moved > 1e-3
+
+
+@pytest.mark.parametrize("case", ["fourier", "fourier+modified", "3d-plain"])
+def test_tpinn_checkpoint_of_other_nets_served_by_the_port(tmp_path, case):
+    """A checkpoint that tpinn writes for a Fourier (or gated) net, or
+    for a 3-coordinate net, loads in the port and is served: /predict
+    and /residual equal tpinn's server (float32: 1e-5 and the residual
+    relative to its max 1e-4), and the port's own round trip keeps every
+    leaf."""
+    from tpinn.app.serve import PINNServer as JaxServer
+    from tpinn.utils import checkpoint as jckpt
+    from tpinn_torch.app.serve import PINNServer
+    from tpinn_torch.utils import checkpoint as tckpt
+
+    if case == "3d-plain":
+        problem, kinds, pad, hard = "poisson_3d", ("minmax",) * 3, 0, [
+            "0", "x*(1 - x)*y*(1 - y)*z*(1 - z)"]
+        spec_j = jnet.MLPSpec(depth=2, width=12)
+    else:
+        problem, kinds, pad, hard = "helmholtz_2d", ("minmax",) * 2, 3, None
+        spec_j = jnet.MLPSpec(**{**FAMILIES[case], "fourier_scale": 2.0})
+    d = len(kinds)
+    fm_j = jnet.feature_map_for(kinds, pad_to=pad)
+    p_j = jnet.init_params(jax.random.PRNGKey(11), spec_j, fm_j)
+    meta = {"stage": 1, "scl": spec_j.scl, "epsil": spec_j.epsil,
+            "problem": problem, "chain": [jnet.spec_to_dict(spec_j)],
+            "feature_kinds": list(kinds), "lb": [0.0] * d, "ub": [1.0] * d,
+            "hard_bc": hard, "coords": ["x", "y", "z"][:d],
+            "pad_features": pad, "deflation": None}
+    path = tmp_path / "params_stage_1.npz"
+    jckpt.save_pytree(path, p_j, meta=meta)
+    tsrv = PINNServer(str(path), problem, device="cpu")
+    jsrv = JaxServer(str(path), problem)
+    assert sorted(tsrv.params) == sorted(p_j)
+    pts = _points(50, (0.0,) * d, (1.0,) * d, seed=3).tolist()
+    np.testing.assert_allclose(tsrv.predict(pts), jsrv.predict(pts),
+                               rtol=1e-5, atol=1e-5)
+    f_t, f_j = np.asarray(tsrv.residual(pts)), np.asarray(jsrv.residual(pts))
+    assert np.abs(f_t - f_j).max() <= 1e-4 * np.abs(f_j).max()
+    with pytest.raises(ValueError, match=f"\\[n, {d}\\]"):
+        tsrv.predict([[0.5] * (d + 1)])
+    # the port's own round trip, and its file read back by tpinn
+    again = tmp_path / "again.npz"
+    tckpt.save_pytree(again, tsrv.params, meta)
+    back, meta2 = tckpt.load_pytree(again, tsrv.params)
+    assert meta2 == meta
+    for a, b in zip(jax.tree_util.tree_leaves(params_to_numpy(back)),
+                    jax.tree_util.tree_leaves(p_j)):
+        np.testing.assert_array_equal(a, np.asarray(b))
+    with np.load(again) as a, np.load(path) as b:
+        assert sorted(a.files) == sorted(b.files)

@@ -764,8 +764,8 @@ def test_recipes_equal_tpinn(name):
     for field in ("name", "equation", "coords", "lb", "ub", "feature_kinds",
                   "source"):
         assert getattr(tp, field) == getattr(jp, field), field
-    with pytest.raises(KeyError, match="item 12"):
-        tproblems.get_recipe("burgers_1d")
+    with pytest.raises(KeyError, match="item 13a"):
+        tproblems.get_recipe("allen_cahn")
     with pytest.raises(KeyError, match="no recipe"):
         tproblems.get_recipe("no_such_problem")
 

@@ -300,8 +300,8 @@ def test_problem_registry():
                                [1.0, 0.0, np.log(0.5) / np.log(0.1)],
                                rtol=1e-6, atol=1e-7)
     assert tuple(prob.bc_groups[0].target(z).shape) == (3, 1)
-    with pytest.raises(KeyError, match="Queue A item 12"):
-        tproblems.get_problem("poisson_2d")
+    with pytest.raises(KeyError, match="Queue A item 13a"):
+        tproblems.get_problem("allen_cahn")
     with pytest.raises(KeyError, match="unknown"):
         tproblems.get_problem("no_such_problem")
 

@@ -14,10 +14,16 @@ and converted JAX parameters plug in unchanged:
   (its parameters go through ``detach``), and the hard-BC ansatz
   u = lift + bubble·N.
 
+- The random-Fourier-feature family (``fourier_features`` > 0: the
+  embedded input goes through ``[cos(h·B), sin(h·B)]`` with a trainable
+  projection ``fourier_b``) and the modified MLP of Wang et al.
+  (``modified``: two gate encoders ``gate_u``, ``gate_v`` and the
+  per-layer interpolation ``h ← (1−t)·u + t·v``).  Both extend the
+  pytree beside ``layers``; they lie outside kernels B1/B2 (plain dense
+  only), so their derivatives come from the generic jvp engine.
+
 Every dense product is full fp32 (``torch.matmul`` with TF32 left off):
-``MLPSpec.precision`` is carried only so JAX checkpoint metas load.  The
-random-Fourier-feature and modified-MLP families are not ported yet
-(ROADMAP.md Queue A item 4).
+``MLPSpec.precision`` is carried only so JAX checkpoint metas load.
 """
 
 from __future__ import annotations
@@ -30,9 +36,6 @@ import torch
 
 Tensor = torch.Tensor
 Params = List[dict]  # [{"w": [din, dout], "b": [dout]} per layer]
-
-_LATER = "not ported to tpinn_torch yet (ROADMAP.md Queue A item 4)"
-
 
 # ---------------------------------------------------------------------------
 # Initialization
@@ -151,8 +154,10 @@ class MLPSpec:
     :param act_hidden: hidden-layer activation.
     :param scl: frequency scale applied inside the first activation.
     :param epsil: output amplitude multiplier.
-    :param fourier_features, fourier_scale, modified: the other families
-        (not ported yet).
+    :param fourier_features: if > 0, the embedded input is replaced by
+        this many random Fourier features (cos and sin of each), drawn
+        with std ``fourier_scale``.
+    :param modified: the modified-MLP gating of Wang et al. (2021).
     :param precision: carried for checkpoint compatibility; products are
         always full fp32 here.
     """
@@ -174,13 +179,6 @@ class MLPSpec:
         return not (self.fourier_features or self.modified)
 
 
-def _require_plain(spec: MLPSpec) -> None:
-    if spec.fourier_features:
-        raise NotImplementedError(f"random-Fourier-feature MLPs are {_LATER}")
-    if spec.modified:
-        raise NotImplementedError(f"the modified MLP family is {_LATER}")
-
-
 def init_params(
     generator: torch.Generator,
     spec: MLPSpec,
@@ -188,21 +186,48 @@ def init_params(
     device,
     dtype=torch.float32,
 ) -> dict:
-    """Initialize the parameter pytree ``{"layers": [...]}`` for ``spec``."""
-    _require_plain(spec)
-    sizes = [feature_map.num_features] + [spec.width] * spec.depth + [spec.out_dim]
-    return {"layers": init_mlp(generator, sizes, device, dtype)}
+    """Initialize the parameter pytree for ``spec``: ``{"layers": [...]}``,
+    with ``fourier_b`` [n_in, F] and the ``gate_u``/``gate_v`` layers beside
+    it for the other families.  Draw order: ``fourier_b``, the layers, the
+    gates."""
+    n_in = feature_map.num_features
+    p: dict = {}
+    if spec.fourier_features:
+        b = torch.randn((n_in, spec.fourier_features), dtype=dtype,
+                        device=generator.device, generator=generator)
+        p["fourier_b"] = (b * spec.fourier_scale).to(device)
+        n_in = 2 * spec.fourier_features
+    sizes = [n_in] + [spec.width] * spec.depth + [spec.out_dim]
+    p["layers"] = init_mlp(generator, sizes, device, dtype)
+    if spec.modified:
+        for name in ("gate_u", "gate_v"):
+            p[name] = init_mlp(generator, [n_in, spec.width], device, dtype)[0]
+    return p
 
 
 def mlp_hidden(params: dict, h: Tensor, spec: MLPSpec) -> Tensor:
-    """Dense chain up to (and excluding) the output layer: ``[N, width]``."""
-    _require_plain(spec)
+    """Dense chain up to (and excluding) the output layer: the feature
+    basis ``[N, width]`` that the output layer combines linearly (the
+    last-layer solve of core.polish treats the net as this basis)."""
     act0 = activation(spec.act_first)
     acth = activation(spec.act_hidden)
+    if spec.fourier_features:
+        proj = torch.matmul(h, params["fourier_b"])
+        h = torch.cat([torch.cos(proj), torch.sin(proj)], dim=1)
     first, *hidden, _last = params["layers"]
-    h = act0(torch.matmul(h, first["w"]) * spec.scl + first["b"])
-    for layer in hidden:
-        h = acth(torch.matmul(h, layer["w"]) + layer["b"])
+    if spec.modified:
+        gu, gv = params["gate_u"], params["gate_v"]
+        u = torch.tanh(torch.matmul(h, gu["w"]) + gu["b"])
+        v = torch.tanh(torch.matmul(h, gv["w"]) + gv["b"])
+        h = act0(torch.matmul(h, first["w"]) * spec.scl + first["b"])
+        h = (1.0 - h) * u + h * v
+        for layer in hidden:
+            t = acth(torch.matmul(h, layer["w"]) + layer["b"])
+            h = (1.0 - t) * u + t * v
+    else:
+        h = act0(torch.matmul(h, first["w"]) * spec.scl + first["b"])
+        for layer in hidden:
+            h = acth(torch.matmul(h, layer["w"]) + layer["b"])
     return h
 
 
@@ -227,7 +252,6 @@ def make_predictor(
     """Build ``u(params, z)`` = epsil * MLP(features(z)).
 
     ``lb``/``ub`` are tensors on the device the predictor will run on."""
-    _require_plain(spec)
 
     def f_u(params: dict, z: Tensor) -> Tensor:
         h = feature_map(z, lb, ub)

@@ -9,21 +9,20 @@ inputs, never by random bits.
 
 Components (reference counterparts in ``tpinn.core.sample``):
 - ``lhs`` / ``lhs_box``     — stratified Latin-hypercube sampling.
-- ``inverse_cdf_1d/2d``     — density-weighted sampling by the inverse CDF
+- ``inverse_cdf_1d/2d/nd``  — density-weighted sampling by the inverse CDF
                               of the flattened cell masses, jittered within
                               the cell.
-- ``gaussian_smooth_1d/2d`` — separable Gaussian window smoothing, 'same'
-                              mode, written as padded weighted sums: no
-                              convolution library, so no TF32 (cuDNN's
+- ``gaussian_smooth_1d/2d/nd`` — separable Gaussian window smoothing,
+                              'same' mode, written as padded weighted sums:
+                              no convolution library, so no TF32 (cuDNN's
                               float32 default) whatever the caller's flags.
-- ``boundary_band_density`` — the 5%-frame boundary-band mask.
-- ``make_sampler`` / ``make_sampler_1d`` / ``sampler_for`` — the point-set
-  pipeline: BC-group points, uniform + boundary-band + adaptive
-  collocation points, BC points concatenated into the collocation set.
-
-The d ≥ 3 functions (``inverse_cdf_nd``, ``gaussian_smooth_nd``,
-``boundary_band_density_nd``, ``make_sampler_nd``) are not ported yet and
-raise NotImplementedError (ROADMAP.md Queue A item 7).
+- ``boundary_band_density`` / ``boundary_band_density_nd`` — the 5%-frame
+  boundary-band mask.
+- ``make_sampler`` / ``make_sampler_1d`` / ``make_sampler_nd`` /
+  ``sampler_for`` — the point-set pipeline: BC-group points, uniform +
+  boundary-band + adaptive collocation points, BC points concatenated
+  into the collocation set.  The d ≥ 3 sampler works on an
+  ``indexing="ij"`` density grid of ``grid**d`` nodes.
 """
 
 from __future__ import annotations
@@ -35,10 +34,6 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 Tensor = torch.Tensor
-
-_ND_LATER = ("d >= 3 sampling is not ported to tpinn_torch yet (ROADMAP.md "
-             "Queue A item 7, a later PR)")
-
 
 # ---------------------------------------------------------------------------
 # Latin hypercube sampling
@@ -72,12 +67,16 @@ def lhs_box(gen: torch.Generator, n: int, lb, ub, dtype=torch.float32) -> Tensor
 def _cell_index(gen: torch.Generator, f: Tensor, n: int) -> Tensor:
     """``n`` cell indices drawn with probability ∝ the cell masses ``f``
     (the floor of ``interp(u·total, cdf, 0..M)`` of the JAX version: the
-    last cell whose cumulative mass does not exceed the draw)."""
+    last cell whose cumulative mass does not exceed the draw).  A cell of
+    zero mass is never drawn: on a plateau of the cumulative sum the search
+    lands on the plateau's last cell, the one whose mass follows, and a
+    draw that rounds up to the total goes to the last cell that has any."""
     cdf = torch.cat([f.new_zeros(1), torch.cumsum(f, 0)])
     draws = torch.rand((n,), generator=gen, device=f.device,
                        dtype=f.dtype) * cdf[-1]
     pos = torch.searchsorted(cdf, draws, right=True) - 1
-    return pos.clamp_(0, f.shape[0] - 1)
+    last_live = torch.searchsorted(cdf, cdf[-1:], right=False) - 1
+    return torch.minimum(pos, last_live).clamp_(0, f.shape[0] - 1)
 
 
 def inverse_cdf_1d(gen: torch.Generator, x: Tensor, f: Tensor, n: int) -> Tensor:
@@ -109,8 +108,28 @@ def inverse_cdf_2d(gen: torch.Generator, X: Tensor, Y: Tensor, F: Tensor,
                         Yc[row, col] + jitter[1] * dy], dim=1)
 
 
-def inverse_cdf_nd(gen, axes, F, n):
-    raise NotImplementedError(_ND_LATER)
+def inverse_cdf_nd(gen: torch.Generator, axes: Sequence[Tensor], F: Tensor,
+                   n: int) -> Tensor:
+    """Sample ``n`` points from a d-dimensional cell density (d ≥ 1).
+
+    ``axes``: per-axis equally spaced node vectors [g_i]; ``F``: the
+    density on their ``indexing="ij"`` meshgrid, shape (g_0, …, g_{d-1}).
+    The algorithm of the 1-D/2-D samplers: the flat cell index from the
+    inverse cumulative sum, unravelled by a div/mod chain, then a uniform
+    jitter per axis within the cell.  Returns [n, d]."""
+    d = len(axes)
+    Fc = F[tuple(slice(0, -1) for _ in range(d))]
+    flat = _cell_index(gen, Fc.reshape(-1), n)
+    idx = []
+    for size in reversed(Fc.shape):
+        q = torch.div(flat, size, rounding_mode="floor")
+        idx.append(flat - q * size)
+        flat = q
+    idx.reverse()
+    jitter = torch.rand((d, n), generator=gen, device=F.device, dtype=F.dtype)
+    cols = [axes[i][idx[i]] + jitter[i] * (axes[i][1] - axes[i][0])
+            for i in range(d)]
+    return torch.stack(cols, dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -164,8 +183,16 @@ def gaussian_smooth_2d(F: Tensor, sig: Sequence[float] = (1.0, 1.0),
     return _weighted_sum_same(F1, wy, 0, (wy.shape[0] - 1) // 2)
 
 
-def gaussian_smooth_nd(F, sig: float = 1.0, wid: int = 5):
-    raise NotImplementedError(_ND_LATER)
+def gaussian_smooth_nd(F: Tensor, sig: float = 1.0, wid: int = 5) -> Tensor:
+    """Separable 'same'-mode Gaussian smoothing along every axis of a
+    d-dimensional density: one normalized window, one padded weighted sum
+    per axis (as ``tpinn.core.sample.gaussian_smooth_nd``)."""
+    w = _gauss_window(sig, wid, F.dtype, F.device)
+    w = w / w.sum()
+    lo = (w.shape[0] - 1) // 2
+    for ax in range(F.dim()):
+        F = _weighted_sum_same(F, w, ax, lo)
+    return F
 
 
 def boundary_band_density(R: Tensor, T: Tensor, lb, ub) -> Tensor:
@@ -177,8 +204,15 @@ def boundary_band_density(R: Tensor, T: Tensor, lb, ub) -> Tensor:
     return torch.where(interior, 0.0, 1.0).to(R.dtype)
 
 
-def boundary_band_density_nd(grids, lb, ub):
-    raise NotImplementedError(_ND_LATER)
+def boundary_band_density_nd(grids: Sequence[Tensor], lb, ub) -> Tensor:
+    """N-D ``boundary_band_density``: 1 on the outer 5% shell of the box, 0
+    inside.  ``grids``: the per-axis ``indexing="ij"`` meshgrids."""
+    interior = None
+    for i, G in enumerate(grids):
+        band = (ub[i] - lb[i]) / 20.0
+        ax_in = (G > lb[i] + band) & (G < ub[i] - band)
+        interior = ax_in if interior is None else (interior & ax_in)
+    return torch.where(interior, 0.0, 1.0).to(grids[0].dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -295,15 +329,50 @@ def make_sampler_1d(config: SamplerConfig, bc_groups: Sequence[BCGroup],
     return sample, (x_nodes,)
 
 
-def make_sampler_nd(config, bc_groups, lb, ub, dtype=torch.float32,
-                    device="cpu"):
-    raise NotImplementedError(_ND_LATER)
+def make_sampler_nd(config: SamplerConfig, bc_groups: Sequence[BCGroup],
+                    lb: Sequence[float], ub: Sequence[float],
+                    dtype=torch.float32, device="cpu"):
+    """The d ≥ 3 sampler: the same pipeline (uniform LHS, boundary band,
+    BC-group points, residual-adaptive draws, in that order: the BC points
+    come BEFORE the adaptive ones) over an ``indexing="ij"`` density grid.
+
+    Returns ``(sample, grids)`` with ``grids`` the tuple of d meshgrid
+    tensors, each of ``config.grid ** d`` nodes: keep ``grid`` modest in
+    high dimension."""
+    d = len(lb)
+    if d < 3:
+        raise ValueError("make_sampler_nd is for d >= 3; use the 1-D/2-D "
+                         "samplers (sampler_for dispatches)")
+    lb_a = torch.as_tensor(lb, dtype=dtype, device=device)
+    ub_a = torch.as_tensor(ub, dtype=dtype, device=device)
+    axes = [torch.linspace(lb[i], ub[i], config.grid, dtype=dtype,
+                           device=device) for i in range(d)]
+    grids = torch.meshgrid(*axes, indexing="ij")
+    F_bd = boundary_band_density_nd(grids, lb, ub)
+    groups = tuple(bc_groups)
+
+    def sample(gen: torch.Generator, F: Tensor) -> Dict:
+        x_bd: List[Tensor] = []
+        u_bd: List[Tensor] = []
+        for grp in groups:
+            pts = lhs_box(gen, config.n_bd, grp.lo, grp.hi, dtype)
+            x_bd.append(pts)
+            u_bd.append(grp.target(pts))
+        parts = [lhs_box(gen, config.n_col, lb_a, ub_a, dtype)]
+        if config.n_band:
+            parts.append(inverse_cdf_nd(gen, axes, F_bd, config.n_band))
+        parts += x_bd
+        if config.n_adaptive:
+            parts.append(inverse_cdf_nd(gen, axes, F, config.n_adaptive))
+        return {"x_col": torch.cat(parts, dim=0), "x_bd": x_bd, "u_bd": u_bd}
+
+    return sample, tuple(grids)
 
 
 def sampler_for(config: SamplerConfig, bc_groups: Sequence[BCGroup],
                 lb: Sequence[float], ub: Sequence[float], dtype=torch.float32,
                 device="cpu"):
-    """Dispatch the point sampler on the domain dimension (1-D / 2-D)."""
+    """Dispatch the point sampler on the domain dimension (1/2/N-D)."""
     d = len(lb)
     if d == 1:
         return make_sampler_1d(config, bc_groups, lb, ub, dtype, device)
@@ -314,8 +383,9 @@ def sampler_for(config: SamplerConfig, bc_groups: Sequence[BCGroup],
 
 def density_geometry(grids):
     """``(z_grid, reshape, smooth)`` for evaluating an adaptive density on a
-    sampler's grid tuple: the [N, d] point stack of the grid, the reshape
-    of a residual column back onto the grid, and the matching smoothing."""
+    sampler's grid tuple in any dimension: the [N, d] point stack of the
+    grid, the reshape of a residual column back onto the grid, and the
+    matching separable Gaussian smoothing."""
     if len(grids) == 1:
         x_nodes = grids[0]
         return (x_nodes, lambda f: f,
@@ -325,4 +395,6 @@ def density_geometry(grids):
         z = torch.stack([R.reshape(-1), T.reshape(-1)], dim=1)
         return (z, lambda f: torch.reshape(f, R.shape),
                 lambda F: gaussian_smooth_2d(F, (1.0, 1.0), (5, 5)))
-    raise NotImplementedError(_ND_LATER)
+    z = torch.stack([G.reshape(-1) for G in grids], dim=1)
+    shp = grids[0].shape
+    return z, lambda f: torch.reshape(f, shp), gaussian_smooth_nd
