@@ -26,7 +26,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
       3-coordinate net and the poisson_3d net at its two sizes; the same
       under the hard-BC product rule at those sizes, the 3-D product rule
       of poisson_3d included; points that require a gradient must be
-      refused.
+      refused.  Each case prints B2's plan (points per tile, blocks, rows
+      of W staged at once, accumulation mode, shared memory, scratch),
+      whose shared memory must equal the kernel's own count; a 6x128 net
+      at 16,384 points and heat_2d's 6x96 net at 28,000, whose gradients
+      do not fit in shared memory beside the whole of a layer's W, and a
+      3x256 net at 4,096 points, too wide for the whole W, are held too,
+      so that both accumulation modes ("smem", "global") and W staged in
+      chunks run.
    c. B3 against its plain version over 1,000 steps, with a learning-rate
       change half-way, on n = 32,801 (the 6x80 net on 3 features) and an
       odd n.
@@ -84,11 +91,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
 6. Timing (medians of synchronised runs): B1 alone and inside the
    residual at the serving shapes; the Adam step with the kernel engine
    against the plain engine at the recipe's shape, at bench.py's and at
-   poisson_3d's; B2 and B3 alone against their plain versions, B1 and B2
-   also at poisson_3d's batch; B3 and the one PyTorch call
-   that computes the same update (torch._fused_adam_) alone and in a
-   queue of 100 launches behind a long kernel, which reads the device
-   time per launch apart from the host call.
+   poisson_3d's; B2 alone against its plain version at the recipe's
+   batch and L-BFGS grid (202,500) and at poisson_3d's (7,200, 13,824),
+   B3 alone against its plain version, B1 also at poisson_3d's batch; B3
+   and the one PyTorch call that computes the same update
+   (torch._fused_adam_) alone and in a queue of 100 launches behind a
+   long kernel, which reads the device time per launch apart from the
+   host call.
+
+Three partial runs for work on kernel B2 (not part of the smoke):
+
+    python3 chip_smoke.py --b2-only            # phases 2, 3b, B2's timing
+    python3 chip_smoke.py --b2-compare DIR     # B2 here and in checkout DIR
+    python3 chip_smoke.py --lbfgs-compare DIR  # phases 5b, 5c in DIR, here
+
+The second times B2 at phase 6's four shapes in DIR (say a git archive
+of the parent commit) and in this tree, one process each, in the order
+DIR, here, here, DIR, on one card.  The third runs phases 5b and 5c in
+DIR and then here, each printing per run an LBFGS_COUNTS line: Adam
+steps, L-BFGS iterates and evaluations per round, kernel launches.
 
 The line before the last is a JSON object describing the kernels (each
 with its launches on the newest main path, phase 5c, and on every
@@ -101,6 +122,7 @@ call computes the same function, that call's time); the last line is
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import math
 import re
@@ -145,6 +167,12 @@ RECIPE_ADAM = 300   # phase 5b: adam_epochs of the recipe, cut from 8,000
 # close to the 0.8 above which polish.galerkin_defect keeps no correction
 RECIPE_LBFGS = 900
 RECIPE_GRID_N = 450 * 450   # points of the recipe's lbfgs_grid
+# phase 3b: a 6x128 net and heat_2d's 6x96 net at its recipe's batch
+# (tpinn/problems/recipes.py), whose gradients B2 cannot keep in shared
+# memory, and a 3x256 net, whose W it stages in chunks of rows
+WIDE_N = 16_384
+HEAT_N = 20000 + 2000 + 6000
+CHUNK_N = 4_096
 # the poisson_3d recipe (tpinn_torch/problems/recipes.py): 5x64 hard BC,
 # u and the three firsts and pure seconds of the 3-D product rule
 P3D_COUNTS = dict(n_col=4000, n_band=1000, n_adaptive=1000, n_bd=200, grid=31)
@@ -320,13 +348,51 @@ def phase_b2(dev, gen):
     import torch
 
     from tpinn_torch.core import net, taylor
-    from tpinn_torch.kernels import mlp_taylor, taylor_vjp
+    from tpinn_torch.kernels import _build, mlp_taylor, taylor_vjp
 
-    # per case of kernel_cases()
+    # per case of kernel_cases(), then a net whose gradient does not fit
+    # in shared memory (the kernel adds it per tile in device memory)
     sizes = (RECIPE_N, 1_077, RECIPE_GRID_N, 16_384, 8_192, P3D_N,
              P3D_GRID_N)
+    cases = [(n, *case[:-1]) for n, case in zip(sizes, kernel_cases())]
+    cases.append((WIDE_N, "annulus 6x128 tanh, gradient too large for "
+                  "shared memory", net.MLPSpec(depth=6, width=128),
+                  net.feature_map_for(("minmax", "periodic")), (0.1, 0.0),
+                  (1.0, 2 * math.pi), IDX5))
+    # heat_2d's recipe net at its batch: the one shipped recipe whose
+    # gradient goes to device memory
+    cases.append((HEAT_N, "heat_2d 6x96 tanh, gradient too large for "
+                  "shared memory", net.MLPSpec(depth=6, width=96),
+                  net.feature_map_for(("minmax", "minmax"), pad_to=3),
+                  (0.0, 0.0), (1.0, 1.0), [(), (0,), (1,), (0, 0)]))
+    # too wide for the whole of a layer's W: W staged in chunks of rows
+    cases.append((CHUNK_N, "annulus 3x256 tanh, W staged in chunks",
+                  net.MLPSpec(depth=3, width=256),
+                  net.feature_map_for(("minmax", "periodic")), (0.1, 0.0),
+                  (1.0, 2 * math.pi), IDX5))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lib = _build.load("taylor2_bwd")
+    lib.tpinn_taylor2_bwd_smem.restype = ctypes.c_longlong
+    lib.tpinn_taylor2_bwd_smem.argtypes = [
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int]
+    check(lib.tpinn_taylor2_bwd_threads() == taylor_vjp.THREADS,
+          "the wrapper's THREADS differs from the kernel's")
     worst_abs = 0.0
-    for n, (name, spec, fm, lo, hi, streams, _) in zip(sizes, kernel_cases()):
+    modes = set()
+    chunked = False
+    for n, name, spec, fm, lo, hi, streams in cases:
+        dims = [fm.num_features] + [spec.width] * spec.depth + [1]
+        plan = taylor_vjp.tiling(dims, len(streams), n, sms)
+        c_smem = lib.tpinn_taylor2_bwd_smem(
+            len(dims) - 1, (ctypes.c_int * len(dims))(*dims), len(streams),
+            plan.tp, plan.kc, int(plan.accumulate == "smem"))
+        check(c_smem == plan.smem_bytes <= 232_448,
+              f"{name}: plan's shared memory {plan.smem_bytes} B, the "
+              f"kernel's {c_smem} B")
+        modes.add(plan.accumulate)
+        chunked |= plan.kc < max(dims[:-1])
+        print(f"  {name}: plan {plan}")
         params = net.init_params(gen, spec, fm, dev)
         leaves = leaves_of(params)
         for t in leaves:
@@ -369,6 +435,9 @@ def phase_b2(dev, gen):
         else:
             raise RuntimeError(f"{name}: points requiring a gradient were "
                                f"not refused")
+    check(modes == {"smem", "global"} and chunked,
+          f"phase 3b held the accumulation modes {sorted(modes)} only, W "
+          f"chunked: {chunked}")
 
     # the hard-BC product rule: the residual-MSE gradient of the kernel
     # engine against the plain engine and the generic jvp engine
@@ -879,6 +948,33 @@ def read_launches() -> dict:
             "taylor2_bwd": taylor_vjp.LAUNCHES, "adam": adam.LAUNCHES}
 
 
+@contextlib.contextmanager
+def lbfgs_counts():
+    """Counts every L-BFGS round run inside: yields a list that gets
+    (iterates, loss evaluations) per round."""
+    from tpinn_torch.core import optim
+
+    rounds = []
+    inner = optim.lbfgs_minimize
+
+    def counted(value_and_grad_fn, x0, config):
+        evals = [0]
+
+        def fn(x):
+            evals[0] += 1
+            return value_and_grad_fn(x)
+
+        res = inner(fn, x0, config)
+        rounds.append((res.n_iters, evals[0]))
+        return res
+
+    optim.lbfgs_minimize = counted
+    try:
+        yield rounds
+    finally:
+        optim.lbfgs_minimize = inner
+
+
 def run_recipe_cut(name, dev, budgets, **spec_kw):
     """get_recipe(name) with stage k's (adam_epochs, lbfgs_epochs) set to
     budgets[k] and the TrainSpec fields of ``spec_kw`` replaced, through
@@ -904,8 +1000,9 @@ def run_recipe_cut(name, dev, budgets, **spec_kw):
     lines = []
     reset_launches()
     t0 = time.perf_counter()
-    res = run_training(problem, spec, output_dir=str(out),
-                       log_fn=lines.append, device=dev)
+    with lbfgs_counts() as rounds:
+        res = run_training(problem, spec, output_dir=str(out),
+                           log_fn=lines.append, device=dev)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_launches()
@@ -924,6 +1021,13 @@ def run_recipe_cut(name, dev, budgets, **spec_kw):
     print(f"  run_training(get_recipe({name!r}), budgets {budgets}): "
           f"{seconds:.1f} s, Adam steps {n_adam}, launches {launches}, "
           f"rel-L2 {res.rel_l2:.4e}")
+    # where the kernel engine takes the loss, every loss evaluation
+    # launches B1 and B2 once: their counts follow the L-BFGS evaluations
+    print("LBFGS_COUNTS " + json.dumps({
+        "recipe": name, "adam_steps": n_adam,
+        "lbfgs_iterates": [it for it, _ in rounds],
+        "lbfgs_evaluations": [ev for _, ev in rounds],
+        "launches": launches, "rel_l2": res.rel_l2}), flush=True)
     return problem, spec, res, lines, launches, n_adam, seconds
 
 
@@ -1232,6 +1336,122 @@ def adam_step(loss_fn, params, data, lw, ref, update):
     return step
 
 
+def b2_shapes():
+    """(key, label, spec, feature kinds, lb, ub, streams, N) of the B2
+    calls timed in phase 6: the raw net of the main paths under their
+    hard-BC residual's stream set, at the flagship's batch and L-BFGS
+    grid and at poisson_3d's."""
+    annulus = (annulus_spec(), ("minmax", "periodic"), (0.1, 0.0),
+               (1.0, 2 * math.pi), IDX5)
+    cube = (p3d_spec(), ("minmax",) * 3, (0.0,) * 3, (1.0,) * 3, IDX7)
+    return [("taylor2_bwd", "6x80 S=5, the recipe's batch", *annulus,
+             RECIPE_N),
+            ("taylor2_bwd_grid", "6x80 S=5, the recipe's L-BFGS grid",
+             *annulus, RECIPE_GRID_N),
+            ("taylor2_bwd_3d", "5x64 S=7, poisson_3d's batch", *cube, P3D_N),
+            ("taylor2_bwd_3d_grid", "5x64 S=7, poisson_3d's L-BFGS grid",
+             *cube, P3D_GRID_N)]
+
+
+def b2_work(n, spec, n_features, d, n_streams):
+    """(bytes, operations) of one B2 call on a plain net: the points and
+    the cotangents read, the weights read and the gradient written once;
+    2 FLOP per multiply-add of the products the function needs: X = H W
+    of the hidden layers, H^T dX of every layer, dX W^T of every layer but
+    the first (the points get no cotangent)."""
+    w, L = spec.width, spec.depth
+    n_par = n_features * w + w + (L - 1) * (w * w + w) + w + 1
+    n_bytes = 4 * (n * (d + n_streams) + 2 * n_par)
+    n_ops = 2 * n * n_streams * (2 * n_features * w + 3 * (L - 1) * w * w
+                                 + 2 * w)
+    return n_bytes, n_ops
+
+
+def b2_times(dev, plain=True) -> dict:
+    """{key: (kernel ms, plain ms or None)} of B2 alone at b2_shapes(),
+    CUDA events, median of TIMED_RUNS.  Uses only taylor_vjp's public
+    functions, so it also times another tree's B2 (b2_compare)."""
+    import torch
+
+    from tpinn_torch.core import net
+    from tpinn_torch.kernels import taylor_vjp
+
+    out = {}
+    for key, label, spec, kinds, lo, hi, streams, n in b2_shapes():
+        fm = net.feature_map_for(kinds)
+        gen = torch.Generator().manual_seed(SEED)
+        layers = net.init_params(gen, spec, fm, dev)["layers"]
+        z = box_points(gen, n, lo, hi, dev)
+        ct = torch.randn((n, len(streams)), generator=gen).to(dev)
+        args = (layers, z, ct, spec, fm, lo, hi, streams)
+        k_ms = event_ms(lambda: taylor_vjp.taylor2_backward(*args))
+        p_ms = (event_ms(lambda: taylor_vjp.taylor2_backward_reference(*args))
+                if plain else None)
+        out[key] = (k_ms, p_ms)
+        print(f"  taylor2_bwd alone, {label} (N={n}): kernel {k_ms:.4f} ms"
+              + (f", plain {p_ms:.4f} ms" if plain else "")
+              + f" (CUDA events, median of {TIMED_RUNS})", flush=True)
+    return out
+
+
+# the head of a run in another checkout (in_trees): this file loaded as a
+# module ``s`` with the checkout's tpinn_torch first on the path
+_IN_TREE = "\n".join([
+    "import importlib.util, json, sys, torch",
+    "tree, smoke = sys.argv[1:3]",
+    "sys.path.insert(0, tree)",
+    "spec = importlib.util.spec_from_file_location('smoke', smoke)",
+    "s = importlib.util.module_from_spec(spec)",
+    "spec.loader.exec_module(s)",
+    "torch.backends.cuda.matmul.allow_tf32 = False",
+    "torch.backends.cudnn.allow_tf32 = False",
+    "torch.set_float32_matmul_precision('highest')",
+    "dev = torch.device('cuda', 0)"])
+
+
+def in_trees(trees, body) -> None:
+    """Runs the Python lines ``body`` after _IN_TREE once per checkout in
+    ``trees``, in that order, one process each, on one card; echoes each
+    run's output."""
+    print(f"  card: {card_line()}")
+    code = "\n".join([_IN_TREE, *body])
+    for tree in trees:
+        proc = subprocess.run(
+            [sys.executable, "-c", code, tree, str(ROOT / "chip_smoke.py")],
+            cwd=tree, capture_output=True, text=True, timeout=900)
+        sys.stdout.write(proc.stdout)
+        sys.stdout.flush()
+        if proc.returncode != 0:
+            sys.stdout.write(proc.stderr[-4000:])
+            raise RuntimeError(f"the run in {tree} failed")
+
+
+def b2_compare(parent: str) -> None:
+    """B2 alone at b2_shapes() in this tree and in another checkout
+    (``parent``, e.g. a git archive of the parent commit), in the order
+    parent, this, this, parent; one JSON line per run."""
+    here, there = str(ROOT), str(Path(parent).resolve())
+    in_trees((there, here, here, there), [
+        "from tpinn_torch.kernels import taylor_vjp",
+        "t = s.b2_times(dev, plain=False)",
+        "plans = [str(taylor_vjp.tiling([3] + [sp.width] * sp.depth + [1], "
+        "len(st), n)) if hasattr(taylor_vjp, 'Plan') else None "
+        "for _, _, sp, _, _, _, st, n in s.b2_shapes()]",
+        "print('B2_TIMES ' + json.dumps({'tree': tree, 'plans': plans, "
+        "'ms': {k: v[0] for k, v in t.items()}}))"])
+
+
+def lbfgs_compare(parent: str) -> None:
+    """Phases 5b and 5c in another checkout (``parent``) and in this tree,
+    in that order: their LBFGS_COUNTS lines give the kernels' launches
+    beside the Adam steps and the L-BFGS iterates and evaluations."""
+    in_trees((str(Path(parent).resolve()), str(ROOT)), [
+        "from tpinn_torch.kernels import _build",
+        "_build.load_all(s.KERNELS)",
+        "s.phase_recipe(dev, s.card_line())",
+        "s.phase_poisson3d(dev, s.card_line())"])
+
+
 def phase_timing_train(dev):
     """The Adam step, kernel engine (B1 + B2 + B3) against the plain
     engine (plain B1, autograd, plain Adam), and B2 and B3 alone."""
@@ -1272,43 +1492,23 @@ def phase_timing_train(dev):
               f"{ms['plain']:.3f} ms (synchronised host clock, median of "
               f"{TIMED_RUNS}, alternating)")
 
-    # B2 alone at the recipe's batch: the raw 6x80 net under the hard-BC
-    # residual's stream set
-    spec, fm = annulus_spec(), net.feature_map_for(("minmax", "periodic"))
-    lo, hi = (0.1, 0.0), (1.0, 2 * math.pi)
-    gen = torch.Generator().manual_seed(SEED)
-    layers = net.init_params(gen, spec, fm, dev)["layers"]
-    z = box_points(gen, RECIPE_N, lo, hi, dev)
-    ct = torch.randn((RECIPE_N, len(IDX5)), generator=gen).to(dev)
-    args = (layers, z, ct, spec, fm, lo, hi, IDX5)
-    k_ms = event_ms(lambda: taylor_vjp.taylor2_backward(*args))
-    p_ms = event_ms(lambda: taylor_vjp.taylor2_backward_reference(*args))
-    n_flop = 3 * 2 * RECIPE_N * len(IDX5) * (5 * 80 * 80)
-    out["taylor2_bwd"] = (k_ms, p_ms)
-    print(f"  taylor2_bwd alone N={RECIPE_N} S=5 6x80: kernel {k_ms:.3f} ms "
-          f"({n_flop / k_ms / 1e9:.2f} TFLOP/s fp32 on the hidden layers), "
-          f"plain {p_ms:.3f} ms (CUDA events, median of {TIMED_RUNS})")
+    out.update(b2_times(dev))
 
-    # B1 and B2 alone at poisson_3d's batch: the raw 5x64 net under the
-    # 3-D hard-BC residual's stream set
+    # B1 alone at poisson_3d's batch: the raw 5x64 net under the 3-D
+    # hard-BC residual's stream set
     spec, fm = p3d_spec(), net.feature_map_for(("minmax",) * 3)
     lo, hi = (0.0,) * 3, (1.0,) * 3
     gen = torch.Generator().manual_seed(SEED)
     params = net.init_params(gen, spec, fm, dev)
     z = box_points(gen, P3D_N, lo, hi, dev)
-    ct = torch.randn((P3D_N, len(IDX7)), generator=gen).to(dev)
     fwd = (params, z, spec, fm, lo, hi, IDX7)
-    bwd = (params["layers"], z, ct, spec, fm, lo, hi, IDX7)
     out["taylor2_fwd_3d"] = (
         event_ms(lambda: mlp_taylor.taylor2_streams(*fwd)),
         event_ms(lambda: mlp_taylor.taylor2_streams_reference(*fwd)))
-    out["taylor2_bwd_3d"] = (
-        event_ms(lambda: taylor_vjp.taylor2_backward(*bwd)),
-        event_ms(lambda: taylor_vjp.taylor2_backward_reference(*bwd)))
-    for name in ("taylor2_fwd_3d", "taylor2_bwd_3d"):
-        print(f"  {name[:-3]} alone N={P3D_N} S=7 5x64: kernel "
-              f"{out[name][0]:.4f} ms, plain {out[name][1]:.4f} ms (CUDA "
-              f"events, median of {TIMED_RUNS})")
+    print(f"  taylor2_fwd alone N={P3D_N} S=7 5x64: kernel "
+          f"{out['taylor2_fwd_3d'][0]:.4f} ms, plain "
+          f"{out['taylor2_fwd_3d'][1]:.4f} ms (CUDA events, median of "
+          f"{TIMED_RUNS})")
 
     # B3 alone on the 6x80 net's parameter count
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1410,6 +1610,39 @@ def phase_timing(dev, gen, servers):
     return out
 
 
+def phase_build() -> None:
+    """Build the kernels (one nvcc each, all started together); print the
+    build times and ptxas's register and spill lines."""
+    from tpinn_torch.kernels import _build
+
+    _build.load_all(KERNELS)
+    for name in KERNELS:
+        info = _build.BUILD_INFO[name]
+        print(f"  built {Path(info['path']).name} in {info['seconds']:.2f} s "
+              f"(cached: {info['cached']})")
+        for line in info["log"].splitlines():
+            if ("registers" in line or "spill" in line
+                    or "Compiling entry" in line):
+                print("    ptxas: " + line.strip())
+
+
+def b2_only() -> None:
+    """Phases 2, 3b and B2's timing of phase 6 alone, for fast iteration
+    on kernel B2."""
+    import torch
+
+    print(f"  card: {card_line()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda", 0)
+    phase("2. build")
+    phase_build()
+    phase("3b. B2 vs plain")
+    phase_b2(dev, torch.Generator().manual_seed(SEED))
+    phase("6. B2 timing")
+    b2_times(dev)
+
+
 def main() -> int:
     import torch
 
@@ -1418,7 +1651,7 @@ def main() -> int:
               "False); this smoke runs only on a GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from tpinn_torch.kernels import _build, mlp_taylor
+    from tpinn_torch.kernels import mlp_taylor
 
     phase("1. device")
     card = card_line()
@@ -1431,14 +1664,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
 
     phase("2. build")
-    _build.load_all(KERNELS)
-    for name in KERNELS:
-        info = _build.BUILD_INFO[name]
-        print(f"  built {Path(info['path']).name} in {info['seconds']:.2f} s "
-              f"(cached: {info['cached']})")
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print("    ptxas: " + line.strip())
+    phase_build()
 
     gen = torch.Generator().manual_seed(SEED)
     phase("3a. B1 vs plain")
@@ -1485,26 +1711,47 @@ def main() -> int:
     # larger of its bytes (inputs read once, outputs written once) over the
     # memory rate and its operations over the fp32 FMA peak.  Per point and
     # stream a 6x80 net on 3 features costs 2*(3*80 + 5*80*80 + 80) FLOP
-    # forward; the backward recomputes it and takes two products per layer.
+    # forward; B2's count is b2_work's.
     per_point = 2 * len(IDX5) * (3 * 80 + 5 * 80 * 80 + 80)
     work = {  # name: (bytes, operations) of the call timed in phase 6
         "taylor2_fwd": (4 * (262_144 * (2 + len(IDX5)) + ADAM_N),
                         262_144 * per_point),
-        "taylor2_bwd": (4 * (RECIPE_N * (2 + len(IDX5)) + 2 * ADAM_N),
-                        3 * RECIPE_N * per_point),
+        "taylor2_bwd": b2_work(RECIPE_N, annulus_spec(), 3, 2, len(IDX5)),
         "adam": (4 * 7 * ADAM_N, 16 * ADAM_N)}
     # the same at poisson_3d's batch: 5x64 on 3 features, S = 7
     per_point_3d = 2 * len(IDX7) * (3 * 64 + 4 * 64 * 64 + 64)
     work_3d = {
         "taylor2_fwd": (4 * (P3D_N * (3 + len(IDX7)) + P3D_PARAMS),
-                        P3D_N * per_point_3d),
-        "taylor2_bwd": (4 * (P3D_N * (3 + len(IDX7)) + 2 * P3D_PARAMS),
-                        3 * P3D_N * per_point_3d)}
+                        P3D_N * per_point_3d)}
     l_ms, kq_ms, lq_ms = times["adam_library"]
+    # B2 at its timed shapes, each with the plan it ran under
+    from tpinn_torch.kernels import taylor_vjp
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    b2_rows = []
+    for key, label, spec, kinds, lo, hi, streams, n in b2_shapes():
+        d, w, S = len(kinds), spec.width, len(streams)
+        nf = 3                       # minmax x2 + periodic, or minmax x3
+        n_bytes, n_ops = b2_work(n, spec, nf, d, S)
+        t_b, t_o = n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / PEAK_FP32_FLOPS * 1e3
+        plan = taylor_vjp.tiling([nf] + [w] * spec.depth + [1], S, n, sms)
+        k_ms, p_ms = times[key]
+        b2_rows.append({
+            "shape": label, "N": n, "S": S, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "accumulate": plan.accumulate, "tile_points": plan.tp,
+            "blocks": plan.blocks, "scratch_bytes": plan.scratch_bytes})
+        print(f"  taylor2_bwd, {label} (N={n}): {k_ms:.4f} ms, bound "
+              f"{max(t_b, t_o):.5f} ms ({100 * max(t_b, t_o) / k_ms:.1f}% of "
+              f"the time), plain {p_ms:.4f} ms; plan {plan}; on {card}")
+    b2_extra = {"accumulate": b2_rows[0]["accumulate"],
+                "scratch_bytes": b2_rows[0]["scratch_bytes"],
+                "shapes": b2_rows}
     rows = (("taylor2_fwd", "taylor2_fwd", "tpinn/kernels/mlp_taylor.py:155",
              err_fwd, times["kernel_alone"], None, {}),
             ("taylor2_bwd", "taylor2_bwd", "tpinn/kernels/taylor_vjp.py:203",
-             err_bwd, times["taylor2_bwd"], None, {}),
+             err_bwd, times["taylor2_bwd"], None, b2_extra),
             ("adam_update", "adam", "tpinn/kernels/adam.py:46", err_adam,
              times["adam"], l_ms,
              {"queued_ms": kq_ms, "library_queued_ms": lq_ms}))
@@ -1552,4 +1799,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["--b2-only"]:
+        b2_only()
+    elif sys.argv[1:2] == ["--b2-compare"] and len(sys.argv) == 3:
+        b2_compare(sys.argv[2])
+    elif sys.argv[1:2] == ["--lbfgs-compare"] and len(sys.argv) == 3:
+        lbfgs_compare(sys.argv[2])
+    else:
+        sys.exit(main())

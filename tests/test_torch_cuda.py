@@ -34,6 +34,14 @@ TWO_PI = 2.0 * math.pi
 CASES = {
     "annulus-6x80-ragged": (dict(depth=6, width=80), ("minmax", "periodic"), 0,
                             (0.1, 0.0), (1.0, TWO_PI), IDX5, 4_099),
+    # B2 cannot keep this net's gradient in shared memory: per-tile sums in
+    # device memory
+    "annulus-6x128-global": (dict(depth=6, width=128), ("minmax", "periodic"),
+                             0, (0.1, 0.0), (1.0, TWO_PI), IDX5, 3_001),
+    # too wide for the whole of a layer's W in shared memory: W in chunks
+    "annulus-3x256-w-chunked": (dict(depth=3, width=256),
+                                ("minmax", "periodic"), 0, (0.1, 0.0),
+                                (1.0, TWO_PI), IDX5, 2_003),
     "sin-first-pad_to-3": (dict(depth=3, width=40, act_first="sin", scl=3.0,
                                 epsil=0.5), ("minmax", "minmax"), 3,
                            (0.0, 0.0), (1.0, 1.0), IDX6, 1_000),

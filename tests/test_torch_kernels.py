@@ -430,10 +430,112 @@ def test_backward_refuses_out_of_scope():
     with pytest.raises(ValueError, match="runs on CUDA"):
         tvjp.taylor2_backward(layers, zt.to("meta"),
                               torch.zeros(len(zt), len(c["streams"])), *rest)
-    assert tvjp.tiling(5, 80) == (16, 2)      # 78,080 B: two blocks per SM
     with pytest.raises(ValueError, match="shared memory"):
-        tvjp.tiling(10, 4096)
+        tvjp.tiling([3, 4096, 1], 10, 1_000)
 
+
+def _recipe_b2_nets():
+    """(name, dims, S, [point counts]) of every shipped recipe stage whose
+    loss goes through kernel B2: plain dense nets (no Fourier features) of
+    order <= 2, the stream plan of the kernel engine (the product rule's
+    superset under a hard BC), at the recipe's batch and L-BFGS grid."""
+    from tpinn_torch import problems
+    from tpinn_torch.problems.recipes import RECIPES
+
+    out = []
+    for name, rec in RECIPES.items():
+        prob, spec = problems.get_recipe(name)
+        for k, st in enumerate(spec.stages):
+            idx = tpde.compile_pde(st.equation or prob.equation,
+                                   prob.coords).indices
+            if st.fourier_features or any(len(ix) > 2 for ix in idx):
+                continue
+            need = set(idx) | {()}
+            if rec.hard_bc:
+                need |= {(i,) for ix in idx for i in ix}
+            fm = tnet.feature_map_for(prob.feature_kinds,
+                                      pad_to=spec.pad_features)
+            dims = [fm.num_features] + [st.width] * st.depth + [1]
+            sizes = [spec.n_col + spec.n_band + spec.n_adaptive, 1]
+            if st.lbfgs_grid:
+                sizes.append(st.lbfgs_grid ** len(prob.coords))
+            out.append((f"{name}/{k + 1}", dims,
+                        len(ttaylor.plan_streams(need)), sizes))
+    return out
+
+
+# chip_smoke.py's kernel_cases(): (dims, S, points)
+_SMOKE_B2 = [([3] + [80] * 6 + [1], 5, n)
+             for n in (262_144, 46_000, 1_077, 202_500)] + [
+    ([3] + [64] * 6 + [1], 6, 65_536), ([4] + [48] * 4 + [1], 10, 32_768),
+    ([3] + [64] * 5 + [1], 7, 7_200), ([3] + [64] * 5 + [1], 7, 13_824)]
+# the one shipped recipe net whose gradient does not fit on chip beside
+# the whole of a layer's W
+_GLOBAL_RECIPES = {"heat_2d/1"}
+_B2_PLAN_CASES = (
+    [pytest.param(dims, s, sizes,
+                  "global" if name in _GLOBAL_RECIPES else "smem", False,
+                  id=name)
+     for name, dims, s, sizes in _recipe_b2_nets()]
+    + [pytest.param(dims, s, [n], "smem", False, id=f"smoke-{dims[1]}x"
+                    f"{len(dims) - 2}-S{s}-N{n}") for dims, s, n in _SMOKE_B2]
+    + [pytest.param([3] + [128] * 6 + [1], 5, [16_384, 1], "global", False,
+                    id="6x128-too-large-for-shared-memory"),
+       pytest.param([3] + [256] * 3 + [1], 5, [4_096, 1], "global", True,
+                    id="3x256-W-in-chunks")])
+
+
+@pytest.mark.parametrize("dims,n_streams,sizes,mode,chunked",
+                         _B2_PLAN_CASES)
+def test_backward_plan(dims, n_streams, sizes, mode, chunked):
+    """B2's plan: within one block's shared memory, the accumulation mode
+    named and chosen from the sizes alone (every shipped recipe but
+    heat_2d keeps the gradient on chip, always beside the whole of a
+    layer's W), W in chunks only where the whole W does not fit, the
+    largest tile that fits, a multiple of 4 points, spread over at most
+    one block per SM with no block more than one tile ahead of another."""
+    assert len(_recipe_b2_nets()) >= 10   # every plain order-2 recipe stage
+    for n in sizes:
+        plan = tvjp.tiling(dims, n_streams, n, 132)
+        assert plan == tvjp.tiling(dims, n_streams, n, 132)
+        assert plan.accumulate == mode
+        assert plan.smem_bytes == tvjp.smem_bytes(
+            dims, n_streams, plan.tp, plan.kc, mode) <= 232_448
+        assert plan.tp % 4 == 0 and plan.kc % 4 == 0 and plan.kc >= 4
+        k_max = (max(dims[:-1]) + 3) // 4 * 4
+        assert (plan.kc < k_max) == chunked and plan.kc <= k_max
+        larger = [tp for tp in tvjp.TILE_POINTS if tp > plan.tp]
+        least_w = k_max if mode == "smem" else 4    # rows of W to stage
+        assert all(tvjp.smem_bytes(dims, n_streams, tp, least_w, mode)
+                   > 232_448 for tp in larger)
+        n_tiles = -(-n // plan.tp)
+        rounds = -(-n_tiles // plan.blocks)
+        assert plan.blocks <= min(132, n_tiles)
+        assert rounds == -(-n_tiles // 132)      # as few rounds as the SMs allow
+        assert (plan.blocks - 1) * rounds < n_tiles
+        n_params = sum(dims[l] * dims[l + 1] + dims[l + 1]
+                       for l in range(len(dims) - 1))
+        hidden = [(w + 3) // 4 * 4 for w in dims[1:-1]]   # X, and H but the last
+        ws = n_streams * plan.tp * (sum(hidden) + sum(hidden[:-1]))
+        assert plan.scratch_bytes == 4 * (plan.blocks * (n_params + ws)
+                                          + n_params)
+
+
+
+@pytest.mark.parametrize("n_streams", [2, 5, 10])
+def test_backward_plan_takes_every_width_the_earlier_kernel_took(n_streams):
+    """The earlier B2 took a net while its three stream buffers and the
+    bias sums (12·S + 1 rows of round4(width) floats at 4 points a tile)
+    fit in a block; the plan takes every such width, staging W in chunks
+    where the whole does not fit."""
+    r4 = lambda w: (w + 3) // 4 * 4
+    widest = max(w for w in range(1, 5_000)
+                 if (12 * n_streams + 1) * r4(w) * 4 <= 232_448)
+    for w in range(1, widest + 1):
+        plan = tvjp.tiling([3, w, w, 1], n_streams, 1_000)
+        assert plan.smem_bytes <= 232_448 and plan.kc >= 4
+    with pytest.raises(ValueError, match="shared memory"):
+        tvjp.tiling([3, 4 * widest, 1], n_streams, 1_000)
 
 # ---------------------------------------------------------------------------
 # Kernel B3 (adam)

@@ -32,8 +32,9 @@ refuses points that require a gradient and defines no ``jvp``, so
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
-from typing import List, Sequence
+from typing import List, NamedTuple, Sequence
 
 import torch
 
@@ -45,23 +46,93 @@ from tpinn_torch.kernels import mlp_taylor
 LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
 
-BLOCKS_PER_SM = 2
 _ERRORS = dict(mlp_taylor._ERRORS)
 _ERRORS[-10] = "bad grid or workspace size"
+_ERRORS[-11] = "bad W chunk or accumulation mode"
+
+# the kernel's block (csrc/taylor2_bwd.cu kThreads) and the tile sizes
+# the plan may choose, largest first (multiples of 4 points)
+THREADS = 416
+TILE_POINTS = (20, 16, 12, 8, 4)
 
 
-def tiling(n_streams: int, widest: int):
-    """(points per tile, blocks per SM): the largest tile whose three
-    stream buffers plus the bias sums (3·S·TP·KS + TP/4·KS floats) let two
-    blocks share an SM, else one block."""
-    ks = (widest + 3) & ~3
-    for blocks, budget in ((BLOCKS_PER_SM, mlp_taylor.SMEM_TWO_BLOCKS),
-                           (1, mlp_taylor.SMEM_LIMIT)):
-        for tp in (32, 16, 8, 4):
-            smem = (3 * n_streams * tp * ks + tp // 4 * ks) * 4
-            if smem <= budget:
-                return tp, blocks
-    raise ValueError(f"width {widest} with {n_streams} streams exceeds the "
+class Plan(NamedTuple):
+    """How one call of kernel B2 is cut (``tiling``)."""
+    tp: int             # points per tile
+    blocks: int         # persistent blocks (at most one per SM)
+    kc: int             # rows of a layer's W staged in shared memory at once
+    accumulate: str     # "smem": dW/db summed on chip; "global": per tile
+    smem_bytes: int     # shared memory of one block
+    scratch_bytes: int  # device scratch of the call: partials, workspace, grad
+
+
+def _r4(x: int) -> int:
+    return (x + 3) & ~3
+
+
+def _row_stride(widest: int) -> int:
+    """Floats per row of the kernel's stream buffers: ``widest`` rounded up
+    to a multiple of 4 that is 4 mod 8 (a warp's four rows hit distinct
+    shared-memory banks)."""
+    k = _r4(widest)
+    return k if k & 7 else k + 4
+
+
+def smem_bytes(dims: Sequence[int], n_streams: int, tp: int, kc: int,
+               accumulate: str) -> int:
+    """Shared memory of one block: [accumulator][two S·TP-row stream
+    buffers][KC rows of W][TP rows of dx0] (csrc/taylor2_bwd.cu
+    ``smem_bytes``)."""
+    ks = _row_stride(max(dims[:-1]))
+    n_params = sum(dims[l] * dims[l + 1] + dims[l + 1]
+                   for l in range(len(dims) - 1))
+    acc = _r4(n_params) if accumulate == "smem" else 0
+    return 4 * (acc + 2 * n_streams * tp * ks + kc * ks + tp * ks)
+
+
+def _ws_stride(dims: Sequence[int], n_streams: int, tp: int) -> int:
+    """Workspace floats of one block: X of every hidden layer and H of all
+    but the last, S·TP rows of round4(width) floats each."""
+    hidden = [_r4(w) for w in dims[1:-1]]
+    return n_streams * tp * (sum(hidden) + sum(hidden[:-1]))
+
+
+def tiling(dims: Sequence[int], n_streams: int, n_points: int,
+           n_sms: int = 132) -> Plan:
+    """The plan of one B2 call, from the sizes alone.
+
+    The gradient is summed in shared memory ("smem") where the
+    accumulator, the stream buffers and the whole of a layer's W fit in
+    one block's 232,448 bytes at some tile size, else added per tile into
+    the block's row of partials in device memory ("global"), with W staged
+    in chunks of at least 4 rows where the whole W does not fit.  Within
+    the mode the tile is the largest that fits, and the grid the fewest
+    blocks that take as few rounds of tiles as the SMs allow, so no block
+    has more than one tile more than another."""
+    return _tiling(tuple(int(v) for v in dims), int(n_streams),
+                   int(n_points), int(n_sms))
+
+
+@functools.lru_cache(maxsize=256)
+def _tiling(dims, n_streams, n_points, n_sms) -> Plan:
+    ks = _row_stride(max(dims[:-1]))
+    k_max = _r4(max(dims[:-1]))
+    n_params = sum(dims[l] * dims[l + 1] + dims[l + 1]
+                   for l in range(len(dims) - 1))
+    for accumulate in ("smem", "global"):
+        for tp in TILE_POINTS:
+            room = (mlp_taylor.SMEM_LIMIT
+                    - smem_bytes(dims, n_streams, tp, 0, accumulate))
+            kc = min(k_max, room // (4 * ks) // 4 * 4)
+            if kc == k_max or (accumulate == "global" and kc >= 4):
+                n_tiles = -(-max(1, n_points) // tp)
+                rounds = -(-n_tiles // n_sms)
+                blocks = -(-n_tiles // rounds)
+                ws_stride = _ws_stride(dims, n_streams, tp)
+                return Plan(tp, blocks, kc, accumulate,
+                            smem_bytes(dims, n_streams, tp, kc, accumulate),
+                            4 * (blocks * (n_params + ws_stride) + n_params))
+    raise ValueError(f"widths {dims} with {n_streams} streams exceed the "
                      f"backward kernel's shared memory")
 
 
@@ -151,66 +222,84 @@ def taylor2_backward_reference(layers: Sequence[dict], z: torch.Tensor,
     return grads
 
 
-def _launch(layers, z, ct, spec, fm, lb, ub, streams) -> List[dict]:
-    global LAUNCHES
-    from tpinn_torch.kernels import _build
-
-    lib = _build.load("taylor2_bwd")
+def _kernel_fn(lib):
+    """The library's entry point with its argument types set."""
     fn = lib.tpinn_taylor2_bwd
     vp, ci, cf, cll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                        ctypes.c_longlong)
     pi, pf, pvp = (ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float),
                    ctypes.POINTER(ctypes.c_void_p))
     fn.argtypes = [vp, cll, ci, pi, pf, pf, ci, ci, pvp, pvp, pi, ci, pi, pi,
-                   pi, pi, pi, ci, ci, cf, cf, ci, vp, ci, vp, cll, vp, vp, vp]
+                   pi, pi, pi, ci, ci, cf, cf, ci, ci, ci, vp, ci, vp, cll, vp,
+                   vp, vp]
     fn.restype = ci
-    ws_fn = lib.tpinn_taylor2_bwd_ws_stride
-    ws_fn.argtypes = [ci, pi, ci, ci]
-    ws_fn.restype = cll
+    return fn
 
-    n, d = z.shape
-    L, S = len(layers), len(streams)
+
+def _ints(v):
+    return (ctypes.c_int * len(v))(*v)
+
+
+@functools.lru_cache(maxsize=64)
+def _static_args(dims, streams, kinds, pad_to, act_first, act_hidden, scl,
+                 epsil, lb, ub, n, sms):
+    """(plan, ws_stride, n_params, the call's arguments that depend on the
+    sizes and the net's structure only), built once per shape: the
+    ctypes arrays cost more host time than the launch."""
+    L, S = len(dims) - 1, len(streams)
     pos = {st: k for k, st in enumerate(streams)}
-    kinds, ii, jj, ppi, ppj = [], [], [], [], []
+    st_kind, ii, jj, ppi, ppj = [], [], [], [], []
     for st in streams:
-        kinds.append(len(st))
+        st_kind.append(len(st))
         ii.append(st[0] if st else 0)
         jj.append(st[1] if len(st) == 2 else 0)
         ppi.append(pos[(st[0],)] if len(st) == 2 else 0)
         ppj.append(pos[(st[1],)] if len(st) == 2 else 0)
+    plan = tiling(dims, S, n, sms)
+    ws_stride = _ws_stride(dims, S, plan.tp)
+    n_params = sum(dims[l] * dims[l + 1] + dims[l + 1] for l in range(L))
+    head = (len(lb), _ints([mlp_taylor._KIND_CODE[k] for k in kinds]),
+            (ctypes.c_float * len(lb))(*lb), (ctypes.c_float * len(ub))(*ub),
+            pad_to, L)
+    mid = (_ints(dims), S, _ints(st_kind), _ints(ii), _ints(jj), _ints(ppi),
+           _ints(ppj), mlp_taylor._ACT_CODE[act_first],
+           mlp_taylor._ACT_CODE[act_hidden], scl, epsil, plan.tp, plan.kc,
+           int(plan.accumulate == "smem"))
+    return plan, ws_stride, n_params, head, mid
+
+
+def _launch(layers, z, ct, spec, fm, lb, ub, streams) -> List[dict]:
+    global LAUNCHES
+    from tpinn_torch.kernels import _build
+
+    lib = _build.load("taylor2_bwd")
+    fn = lib.tpinn_taylor2_bwd if lib.tpinn_taylor2_bwd.argtypes else \
+        _kernel_fn(lib)
+
+    n = z.shape[0]
     dims = [fm.num_features] + [int(layer["w"].shape[1]) for layer in layers]
-    tp, per_sm = tiling(S, max(dims[:-1]))
     sms = torch.cuda.get_device_properties(z.device).multi_processor_count
-    n_blocks = min(-(-n // tp), sms * per_sm)
-
-    def ints(v):
-        return (ctypes.c_int * len(v))(*v)
-
-    def floats(v):
-        return (ctypes.c_float * len(v))(*v)
+    plan, ws_stride, n_params, head, mid = _static_args(
+        tuple(dims), tuple(tuple(st) for st in streams), tuple(fm.kinds),
+        fm.pad_to, spec.act_first, spec.act_hidden, float(spec.scl),
+        float(spec.epsil), tuple(lb), tuple(ub), n, sms)
+    L = len(layers)
 
     def ptrs(ts):
         return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
 
-    ws_stride = ws_fn(L, ints(dims), S, tp)
-    n_params = sum(dims[l] * dims[l + 1] + dims[l + 1] for l in range(L))
     grad = torch.empty(n_params, dtype=torch.float32, device=z.device)
-    partial = torch.zeros((n_blocks, n_params), dtype=torch.float32,
+    # every block zeroes and writes its own row
+    partial = torch.empty((plan.blocks, n_params), dtype=torch.float32,
                           device=z.device)
-    workspace = torch.empty(max(1, n_blocks * ws_stride), dtype=torch.float32,
-                            device=z.device)
+    workspace = torch.empty(max(1, plan.blocks * ws_stride),
+                            dtype=torch.float32, device=z.device)
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream(z.device).cuda_stream
-        err = fn(z.data_ptr(), n, d, ints([mlp_taylor._KIND_CODE[k]
-                                           for k in fm.kinds]),
-                 floats(lb), floats(ub), fm.pad_to, L,
+        err = fn(z.data_ptr(), n, *head,
                  ptrs([layer["w"] for layer in layers]),
-                 ptrs([layer["b"] for layer in layers]), ints(dims), S,
-                 ints(kinds), ints(ii), ints(jj), ints(ppi), ints(ppj),
-                 mlp_taylor._ACT_CODE[spec.act_first],
-                 mlp_taylor._ACT_CODE[spec.act_hidden],
-                 float(spec.scl), float(spec.epsil), tp, ct.data_ptr(),
-                 n_blocks, workspace.data_ptr(), ws_stride,
+                 ptrs([layer["b"] for layer in layers]), *mid, ct.data_ptr(),
+                 plan.blocks, workspace.data_ptr(), ws_stride,
                  partial.data_ptr(), grad.data_ptr(), stream)
     if err != 0:
         what = _ERRORS.get(err) or f"CUDA error {err}"
