@@ -17,7 +17,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
       262,144, a ragged 1,077 and the 202,500 points of the recipe's
       L-BFGS grid), a sin-first net with pad_to=3, a 3-coordinate net, and
       the poisson_3d recipe's 5x64 net with its S = 7 plan at its batch
-      (7,200) and its L-BFGS grid (24^3 = 13,824).
+      (7,200) and its L-BFGS grid (24^3 = 13,824); then, in the other W
+      modes of its plan, heat_2d's 6x96 at its batch (28,000) and a 6x128
+      at 16,384 ("layer"), a 3x256 at 4,096 ("layer", W in chunks) and a
+      3x700 net with 3 coordinates, S = 10, at 2,048 ("l1").  Each case
+      prints B1's plan (points per tile, blocks, threads, W mode, rows of
+      W staged, row stride, shared memory), whose shared memory must equal
+      the kernel's own count, and must launch B1 once; every W mode must
+      have run.
    b. B2 through the autograd Function (B1 forward, B2 backward) against
       B2's plain version on the same cotangent and against autograd
       through the plain Taylor-2 recurrence, per leaf, on the 6x80
@@ -88,35 +95,46 @@ Phases, each of which raises on failure (the script then exits non-zero):
    masked domain; with lsq_polish and deflation asked for, both skipped
    with a log line), kdv_1d (order 3: the generic engine, B1 and B2 0
    times).
-6. Timing (medians of synchronised runs): B1 alone and inside the
-   residual at the serving shapes; the Adam step with the kernel engine
+6. Timing (medians of synchronised runs): B1 inside the residual at the
+   serving shapes; B1 alone against its plain version at the served
+   262,144 points, the recipe's batch and L-BFGS grid (46,000, 202,500)
+   and poisson_3d's (7,200, 13,824), around the call, on the device
+   behind a long kernel and in host time a call, and each net whose
+   weights B1 stages in shared memory against the same plan with them
+   read through L1; the Adam step with the kernel engine
    against the plain engine at the recipe's shape, at bench.py's and at
    poisson_3d's; B2 alone against its plain version at the recipe's
    batch and L-BFGS grid (202,500) and at poisson_3d's (7,200, 13,824),
-   B3 alone against its plain version, B1 also at poisson_3d's batch; B3
+   B3 alone against its plain version; B3
    and the one PyTorch call that computes the same update
    (torch._fused_adam_) alone and in a queue of 100 launches behind a
    long kernel, which reads the device time per launch apart from the
    host call.
 
-Three partial runs for work on kernel B2 (not part of the smoke):
+Partial runs for work on kernels B1 and B2 (not part of the smoke):
 
+    python3 chip_smoke.py --b1-only            # phases 2, 3a, B1's timing
+    python3 chip_smoke.py --b1-compare DIR     # B1 here and in checkout DIR
     python3 chip_smoke.py --b2-only            # phases 2, 3b, B2's timing
     python3 chip_smoke.py --b2-compare DIR     # B2 here and in checkout DIR
     python3 chip_smoke.py --lbfgs-compare DIR  # phases 5b, 5c in DIR, here
 
-The second times B2 at phase 6's four shapes in DIR (say a git archive
-of the parent commit) and in this tree, one process each, in the order
-DIR, here, here, DIR, on one card.  The third runs phases 5b and 5c in
-DIR and then here, each printing per run an LBFGS_COUNTS line: Adam
-steps, L-BFGS iterates and evaluations per round, kernel launches.
+The compares time the kernel at phase 6's shapes in DIR (say a git
+archive of the parent commit) and in this tree, one process each, in the
+order DIR, here, here, DIR, on one card; B1's also prints per shape this
+tree's mean time over DIR's (around the call, on the device and on the
+host) and the largest difference between the two trees' outputs.  The last runs phases 5b and 5c in DIR and then here,
+each printing per run an LBFGS_COUNTS line: Adam steps, L-BFGS iterates
+and evaluations per round, kernel launches.
 
 The line before the last is a JSON object describing the kernels (each
 with its launches on the newest main path, phase 5c, and on every
-earlier path, its time, its plain
-version's, the card's bound for the same work and, where one PyTorch
-call computes the same function, that call's time); the last line is
-{"ok": true, "device": {...}}.
+earlier path, its time, its plain version's, the card's bound for the
+same work and, where one PyTorch call computes the same function, that
+call's time; B1 and B2 with every timed shape and its plan under
+"shapes", B1's times around the call, with its device and host times
+beside them, and its W modes against "l1" under "w_modes"); the last
+line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -173,13 +191,15 @@ RECIPE_GRID_N = 450 * 450   # points of the recipe's lbfgs_grid
 WIDE_N = 16_384
 HEAT_N = 20000 + 2000 + 6000
 CHUNK_N = 4_096
+# phase 3a: a 3x700 net at S = 10, too wide for W in shared memory beside
+# the stream buffers of B1
+L1_N = 2_048
 # the poisson_3d recipe (tpinn_torch/problems/recipes.py): 5x64 hard BC,
 # u and the three firsts and pure seconds of the 3-D product rule
 P3D_COUNTS = dict(n_col=4000, n_band=1000, n_adaptive=1000, n_bd=200, grid=31)
 P3D_N = 4000 + 1000 + 1000 + 6 * 200
 P3D_GRID_N = 24 ** 3
 IDX7 = [(), (0,), (1,), (2,), (0, 0), (1, 1), (2, 2)]
-P3D_PARAMS = 3 * 64 + 64 + 4 * (64 * 64 + 64) + 64 + 1
 # phase 5c: adam_epochs and lbfgs_epochs of the recipe, cut from 4,000 each
 # (200 L-BFGS iterations per round), and the bar for rel-L2 at that budget.
 # At 300 / 600 the run fails the bar by design of the method, not by a
@@ -285,19 +305,67 @@ def kernel_cases():
     ]
 
 
+def b1_mode_cases():
+    """(name, spec, fm, lb, ub, streams, N) of phase 3a's nets whose
+    weights B1 cannot keep resident: heat_2d's recipe net at its batch and
+    a 6x128 net (each layer's W staged per tile), a 3x256 net (W staged in
+    chunks of rows) and a 3x700 net at S = 10 (W read through L1)."""
+    from tpinn_torch.core import net, taylor
+
+    annulus_fm = net.feature_map_for(("minmax", "periodic"))
+    return [
+        ("heat_2d 6x96 tanh, the recipe's batch", net.MLPSpec(depth=6, width=96),
+         net.feature_map_for(("minmax", "minmax"), pad_to=3), (0.0, 0.0),
+         (1.0, 1.0), [(), (0,), (1,), (0, 0)], HEAT_N),
+        ("annulus 6x128 tanh", net.MLPSpec(depth=6, width=128), annulus_fm,
+         (0.1, 0.0), (1.0, 2 * math.pi), IDX5, WIDE_N),
+        ("annulus 3x256 tanh", net.MLPSpec(depth=3, width=256), annulus_fm,
+         (0.1, 0.0), (1.0, 2 * math.pi), IDX5, CHUNK_N),
+        ("3 coordinates 3x700, S = 10",
+         net.MLPSpec(depth=3, width=700, scl=1.3, epsil=0.7),
+         net.feature_map_for(("minmax", "periodic", "identity")),
+         (0.0, 0.0, -1.0), (1.0, 2 * math.pi, 1.0),
+         taylor.plan_streams([(i, j) for i in range(3) for j in range(i, 3)]),
+         L1_N),
+    ]
+
+
 def phase_kernel_vs_plain(dev, gen):
+    """B1 against its plain version and the generic jvp engine, per
+    stream, in every W mode; each case's plan against the kernel's own
+    count of its shared memory."""
     import torch
 
     from tpinn_torch.core import deriv, net
-    from tpinn_torch.kernels import mlp_taylor
+    from tpinn_torch.kernels import _build, mlp_taylor
 
+    lib = _build.load("taylor2_fwd")
+    lib.tpinn_taylor2_fwd_smem.restype = ctypes.c_longlong
+    lib.tpinn_taylor2_fwd_smem.argtypes = [
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 5
+    check(lib.tpinn_taylor2_fwd_max_threads() == mlp_taylor.THREADS,
+          "the wrapper's THREADS differs from the kernel's")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     worst_abs = 0.0
-    for name, spec, fm, lo, hi, streams, n in kernel_cases():
+    modes, chunked = set(), False
+    for name, spec, fm, lo, hi, streams, n in kernel_cases() + b1_mode_cases():
+        dims = [fm.num_features] + [spec.width] * spec.depth + [1]
+        plan = mlp_taylor.tiling(dims, len(streams), n, sms)
+        c_smem = lib.tpinn_taylor2_fwd_smem(
+            len(dims) - 1, (ctypes.c_int * len(dims))(*dims), len(streams),
+            plan.tp, mlp_taylor.W_MODES[plan.w_mode], plan.kc, plan.ks)
+        check(c_smem == plan.smem_bytes <= 232_448,
+              f"{name}: plan's shared memory {plan.smem_bytes} B, the "
+              f"kernel's {c_smem} B")
+        modes.add(plan.w_mode)
+        chunked |= plan.w_mode == "layer" and plan.kc < max(dims[:-2])
         params = net.init_params(gen, spec, fm, dev)
         lb = torch.tensor(lo, dtype=torch.float32, device=dev)
         ub = torch.tensor(hi, dtype=torch.float32, device=dev)
         z = box_points(gen, n, lo, hi, dev)
+        before = mlp_taylor.LAUNCHES
         got = mlp_taylor.taylor2_streams(params, z, spec, fm, lo, hi, streams)
+        check(mlp_taylor.LAUNCHES == before + 1, f"{name}: B1 not launched")
         plain = mlp_taylor.taylor2_streams_reference(params, z, spec, fm, lo,
                                                      hi, streams)
         pred = net.make_predictor(spec, fm, lb, ub)
@@ -305,7 +373,7 @@ def phase_kernel_vs_plain(dev, gen):
         generic = torch.cat([gparts[st] for st in streams], dim=1)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
-        print(f"  {name}: N={n} S={len(streams)}")
+        print(f"  {name}: N={n} S={len(streams)} plan {plan}")
         for k, st in enumerate(streams):
             scale_p = plain[:, k].abs().max().item()
             scale_g = generic[:, k].abs().max().item()
@@ -317,6 +385,9 @@ def phase_kernel_vs_plain(dev, gen):
                   f"rel err vs plain {rel_p:.3e}  vs jvp {rel_g:.3e}")
             check(rel_p <= REL_TOL, f"{name} stream {st} vs plain: {rel_p}")
             check(rel_g <= REL_TOL, f"{name} stream {st} vs jvp: {rel_g}")
+    check(modes == set(mlp_taylor.W_MODES) and chunked,
+          f"phase 3a held the W modes {sorted(modes)} only, W chunked: "
+          f"{chunked}")
     return worst_abs
 
 
@@ -1196,10 +1267,15 @@ def phase_other_paths(dev, card):
           f"last-layer solves on the Fourier basis, on {card}")
     by_path["helmholtz_2d"] = launches
 
-    # burgers_1d: nonlinear, two composed stages, the Newton correction (at
-    # 150 / 90 per stage and at 1,000 / 600 its own guard declines it)
+    # burgers_1d: nonlinear, two composed stages, the Newton correction.
+    # The checks below hold either outcome of the correction's own guard.
+    # At 500 / 500 a stage the H100 applies it (resid_drop 0.690), but the
+    # outcome flips without order between nearby budgets (declined at
+    # 400 / 300 and 600 / 400, applied at 500 / 300, 400 / 400 and
+    # 800 / 600), so the branch that runs moves with the last digits of
+    # B1's and B2's sums
     _, spec, res, lines, launches, n_adam, _ = run_recipe_cut(
-        "burgers_1d", dev, [(400, 300), (400, 300)], **cadence)
+        "burgers_1d", dev, [(500, 500), (500, 500)], **cadence)
     check(sum("lsq_polish skipped (equation nonlinear in u)" in ln
               for ln in lines) == 2 and not polish_lines(lines),
           "burgers_1d: the last-layer solve was not skipped in both stages")
@@ -1281,8 +1357,13 @@ def queued_ms(fn, blocker) -> float:
     return statistics.median(times)
 
 
-def event_ms(fn) -> float:
-    """Median device time of ``fn`` between two CUDA events."""
+def event_ms(fn, blocker=None) -> float:
+    """Median time of ``fn`` between two CUDA events around one call,
+    over TIMED_RUNS after three warm-up calls.  Without ``blocker`` the
+    card is idle when the first event is recorded, so the span also holds
+    the host's part of the call before its launch.  With ``blocker`` (a
+    long kernel) the events are enqueued behind it and the host's part
+    falls inside the blocker's run: the device time alone."""
     import torch
 
     for _ in range(3):
@@ -1291,11 +1372,34 @@ def event_ms(fn) -> float:
     for _ in range(TIMED_RUNS):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if blocker is not None:
+            torch.cuda.synchronize()
+            blocker()
         a.record()
         fn()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def host_ms(fn, calls=20) -> float:
+    """Host time of one call of ``fn`` that only enqueues device work:
+    ``calls`` calls in a row with no synchronisation between them, the
+    median over five such runs.  The launches queue up, so the card does
+    not hold the host back."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e3 / calls)
+    torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -1394,11 +1498,147 @@ def b2_times(dev, plain=True) -> dict:
     return out
 
 
+def b1_shapes():
+    """(key, label, spec, feature kinds, lb, ub, streams, N) of the B1
+    calls timed in phase 6: the served 6x80 annulus net at 262,144 points,
+    the flagship's raw net at its batch and L-BFGS grid, poisson_3d's at
+    its batch and L-BFGS grid, each under its residual's stream set."""
+    annulus = (annulus_spec(), ("minmax", "periodic"), (0.1, 0.0),
+               (1.0, 2 * math.pi), IDX5)
+    cube = (p3d_spec(), ("minmax",) * 3, (0.0,) * 3, (1.0,) * 3, IDX7)
+    return [("taylor2_fwd", "6x80 S=5, served", *annulus, 262_144),
+            ("taylor2_fwd_batch", "6x80 S=5, the recipe's batch", *annulus,
+             RECIPE_N),
+            ("taylor2_fwd_grid", "6x80 S=5, the recipe's L-BFGS grid",
+             *annulus, RECIPE_GRID_N),
+            ("taylor2_fwd_3d", "5x64 S=7, poisson_3d's batch", *cube, P3D_N),
+            ("taylor2_fwd_3d_grid", "5x64 S=7, poisson_3d's L-BFGS grid",
+             *cube, P3D_GRID_N)]
+
+
+def b1_work(n, spec, n_features, d, n_streams):
+    """(bytes, operations) of one B1 call on a plain net: the points read,
+    the weights read and [N, S] written once; 2 FLOP per multiply-add of
+    every layer's product on every stream."""
+    w, L = spec.width, spec.depth
+    n_par = n_features * w + w + (L - 1) * (w * w + w) + w + 1
+    n_bytes = 4 * (n * (d + n_streams) + n_par)
+    n_ops = 2 * n * n_streams * (n_features * w + (L - 1) * w * w + w)
+    return n_bytes, n_ops
+
+
+def b1_times(dev, plain=True, save=None) -> dict:
+    """{key: (kernel ms, plain ms or None, {"device_ms", "host_ms"})} of
+    B1 alone at b1_shapes(): CUDA events around one call (event_ms, the
+    host's part of the call included, as phase 6 times every kernel), the
+    device time alone (event_ms behind a long kernel) and the host's time
+    per call (host_ms).  Uses only mlp_taylor's public functions, so it
+    also times another tree's B1 (b1_compare); ``save``, a path, keeps
+    the kernel's outputs there."""
+    import torch
+
+    from tpinn_torch.core import net
+    from tpinn_torch.kernels import mlp_taylor
+
+    big = torch.randn((2048, 2048), device=dev)
+    blocker = lambda: torch.matmul(big, big)
+    out, outputs = {}, {}
+    for key, label, spec, kinds, lo, hi, streams, n in b1_shapes():
+        fm = net.feature_map_for(kinds)
+        gen = torch.Generator().manual_seed(SEED)
+        params = net.init_params(gen, spec, fm, dev)
+        z = box_points(gen, n, lo, hi, dev)
+        args = (params, z, spec, fm, lo, hi, streams)
+        outputs[key] = mlp_taylor.taylor2_streams(*args).cpu()
+        kernel = lambda: mlp_taylor.taylor2_streams(*args)
+        k_ms = event_ms(kernel)
+        p_ms = (event_ms(lambda: mlp_taylor.taylor2_streams_reference(*args))
+                if plain else None)
+        extra = {"device_ms": event_ms(kernel, blocker),
+                 "host_ms": host_ms(kernel)}
+        out[key] = (k_ms, p_ms, extra)
+        print(f"  taylor2_fwd alone, {label} (N={n}): kernel {k_ms:.4f} ms "
+              f"around the call, {extra['device_ms']:.4f} ms on the device, "
+              f"{extra['host_ms']:.4f} ms of host a call"
+              + (f"; plain {p_ms:.4f} ms" if plain else "")
+              + f" (CUDA events, medians of {TIMED_RUNS})", flush=True)
+    if save is not None:
+        Path(save).parent.mkdir(parents=True, exist_ok=True)
+        torch.save(outputs, save)
+    return out
+
+
+@contextlib.contextmanager
+def b1_plan(plan):
+    """Every B1 launch inside the block runs under ``plan`` instead of the
+    plan mlp_taylor.tiling chooses."""
+    from tpinn_torch.kernels import mlp_taylor
+
+    tiling = mlp_taylor.tiling
+    mlp_taylor.tiling = lambda *_: plan
+    mlp_taylor._static_args.cache_clear()
+    try:
+        yield
+    finally:
+        mlp_taylor.tiling = tiling
+        mlp_taylor._static_args.cache_clear()
+
+
+def b1_mode_times(dev) -> list:
+    """B1's device time under its own plan and under the same plan with W
+    read through L1 ("l1"), for phase 3a's nets that cannot keep W
+    resident and for the flagship's 6x80 net at its batch (W resident):
+    what staging W in shared memory buys at each.  event_ms behind a long
+    kernel; the largest difference between the two outputs."""
+    import torch
+
+    from tpinn_torch.core import net
+    from tpinn_torch.kernels import mlp_taylor
+
+    big = torch.randn((2048, 2048), device=dev)
+    blocker = lambda: torch.matmul(big, big)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    _, label, spec, kinds, lo, hi, streams, n = b1_shapes()[1]
+    cases = [(f"annulus {label}", spec, net.feature_map_for(kinds), lo, hi,
+              streams, n)] + b1_mode_cases()
+    rows = []
+    for name, spec, fm, lo, hi, streams, n in cases:
+        dims = [fm.num_features] + [spec.width] * spec.depth + [1]
+        S = len(streams)
+        plan = mlp_taylor.tiling(dims, S, n, sms)
+        if plan.w_mode == "l1":
+            continue
+        l1 = plan._replace(w_mode="l1", kc=0, smem_bytes=mlp_taylor.smem_bytes(
+            S, plan.tp, 0, plan.ks))
+        gen = torch.Generator().manual_seed(SEED)
+        params = net.init_params(gen, spec, fm, dev)
+        z = box_points(gen, n, lo, hi, dev)
+        kernel = lambda: mlp_taylor.taylor2_streams(params, z, spec, fm, lo,
+                                                    hi, streams)
+        ms, got = {}, {}
+        for which in (plan, l1, l1, plan):
+            with b1_plan(which):
+                got[which.w_mode] = kernel()
+                ms.setdefault(which.w_mode, []).append(
+                    event_ms(kernel, blocker))
+        diff = (got[plan.w_mode] - got["l1"]).abs().max().item()
+        row = {"case": name, "N": n, "S": S, "plan": plan._asdict(),
+               "ms": statistics.mean(ms[plan.w_mode]),
+               "l1_ms": statistics.mean(ms["l1"])}
+        rows.append(row)
+        print(f"  B1 W modes, {name} (N={n}, S={S}): {plan.w_mode} "
+              f"{ms[plan.w_mode][0]:.4f}, {ms[plan.w_mode][1]:.4f} ms, l1 "
+              f"{ms['l1'][0]:.4f}, {ms['l1'][1]:.4f} ms on the device: "
+              f"{row['ms'] / row['l1_ms']:.3f}x; max |difference| "
+              f"{diff:.3e}; plan {plan}", flush=True)
+    return rows
+
+
 # the head of a run in another checkout (in_trees): this file loaded as a
 # module ``s`` with the checkout's tpinn_torch first on the path
 _IN_TREE = "\n".join([
     "import importlib.util, json, sys, torch",
-    "tree, smoke = sys.argv[1:3]",
+    "tree, smoke, run = sys.argv[1], sys.argv[2], int(sys.argv[3])",
     "sys.path.insert(0, tree)",
     "spec = importlib.util.spec_from_file_location('smoke', smoke)",
     "s = importlib.util.module_from_spec(spec)",
@@ -1409,21 +1649,67 @@ _IN_TREE = "\n".join([
     "dev = torch.device('cuda', 0)"])
 
 
-def in_trees(trees, body) -> None:
+def in_trees(trees, body) -> list:
     """Runs the Python lines ``body`` after _IN_TREE once per checkout in
-    ``trees``, in that order, one process each, on one card; echoes each
-    run's output."""
+    ``trees``, in that order, one process each, on one card (``run`` is
+    the index of the run); echoes and returns each run's output."""
     print(f"  card: {card_line()}")
     code = "\n".join([_IN_TREE, *body])
-    for tree in trees:
+    outs = []
+    for run, tree in enumerate(trees):
         proc = subprocess.run(
-            [sys.executable, "-c", code, tree, str(ROOT / "chip_smoke.py")],
-            cwd=tree, capture_output=True, text=True, timeout=900)
+            [sys.executable, "-c", code, tree, str(ROOT / "chip_smoke.py"),
+             str(run)], cwd=tree, capture_output=True, text=True, timeout=900)
         sys.stdout.write(proc.stdout)
         sys.stdout.flush()
         if proc.returncode != 0:
             sys.stdout.write(proc.stderr[-4000:])
             raise RuntimeError(f"the run in {tree} failed")
+        outs.append(proc.stdout)
+    return outs
+
+
+def b1_compare(parent: str) -> None:
+    """B1 alone at b1_shapes() in this tree and in another checkout
+    (``parent``, e.g. a git archive of the parent commit), in the order
+    parent, this, this, parent; one B1_TIMES JSON line per run, then per
+    shape this tree's mean time over the parent's around the call (the
+    measure of phase 6), on the device alone and in host time per call,
+    and the largest difference between the two trees' outputs (and
+    within each tree)."""
+    import torch
+
+    here, there = str(ROOT), str(Path(parent).resolve())
+    saved = ROOT / "build" / "b1_compare"
+    outs = in_trees((there, here, here, there), [
+        "from tpinn_torch.kernels import mlp_taylor",
+        f"t = s.b1_times(dev, plain=False, save='{saved}/run%d.pt' % run)",
+        "sms = torch.cuda.get_device_properties(dev).multi_processor_count",
+        "plans = [str(mlp_taylor.tiling([3] + [sp.width] * sp.depth + [1], "
+        "len(st), n, sms)) if hasattr(mlp_taylor, 'Plan') else None "
+        "for _, _, sp, _, _, _, st, n in s.b1_shapes()]",
+        "print('B1_TIMES ' + json.dumps({'tree': tree, 'plans': plans, "
+        "'ms': {k: {'ms': v[0], **v[2]} for k, v in t.items()}}))"])
+    ms = [json.loads(line.split(" ", 1)[1])["ms"] for out in outs
+          for line in out.splitlines() if line.startswith("B1_TIMES ")]
+    res = [torch.load(saved / f"run{r}.pt") for r in range(4)]
+    for key, label, *_, n in b1_shapes():
+        parts = []
+        for what, field in (("around the call", "ms"),
+                            ("on the device", "device_ms"),
+                            ("host a call", "host_ms")):
+            t = [m[key][field] for m in ms]
+            parts.append(f"{what} this tree {t[1]:.4f}, {t[2]:.4f} ms, the "
+                         f"parent {t[0]:.4f}, {t[3]:.4f} ms: "
+                         f"{(t[1] + t[2]) / (t[0] + t[3]):.3f}x")
+        scale = res[0][key].abs().max().item()
+        diff = (res[1][key] - res[0][key]).abs().max().item()
+        same = max((res[1][key] - res[2][key]).abs().max().item(),
+                   (res[0][key] - res[3][key]).abs().max().item())
+        print(f"  B1 {label} (N={n}): " + "; ".join(parts)
+              + f"; max |this - parent| {diff:.3e} on max |out| {scale:.4e}, "
+              f"within a tree {same:.1e}")
+    print("B1_COMPARE " + json.dumps({"ms": ms}))
 
 
 def b2_compare(parent: str) -> None:
@@ -1459,8 +1745,7 @@ def phase_timing_train(dev):
 
     from tpinn_torch import problems
     from tpinn_torch.core import loss as loss_mod
-    from tpinn_torch.core import net
-    from tpinn_torch.kernels import adam, mlp_taylor, taylor_vjp
+    from tpinn_torch.kernels import adam
 
     out = {}
     shapes = (("recipe", problems.with_hard_bc(problems.annulus_laplace()),
@@ -1493,22 +1778,6 @@ def phase_timing_train(dev):
               f"{TIMED_RUNS}, alternating)")
 
     out.update(b2_times(dev))
-
-    # B1 alone at poisson_3d's batch: the raw 5x64 net under the 3-D
-    # hard-BC residual's stream set
-    spec, fm = p3d_spec(), net.feature_map_for(("minmax",) * 3)
-    lo, hi = (0.0,) * 3, (1.0,) * 3
-    gen = torch.Generator().manual_seed(SEED)
-    params = net.init_params(gen, spec, fm, dev)
-    z = box_points(gen, P3D_N, lo, hi, dev)
-    fwd = (params, z, spec, fm, lo, hi, IDX7)
-    out["taylor2_fwd_3d"] = (
-        event_ms(lambda: mlp_taylor.taylor2_streams(*fwd)),
-        event_ms(lambda: mlp_taylor.taylor2_streams_reference(*fwd)))
-    print(f"  taylor2_fwd alone N={P3D_N} S=7 5x64: kernel "
-          f"{out['taylor2_fwd_3d'][0]:.4f} ms, plain "
-          f"{out['taylor2_fwd_3d'][1]:.4f} ms (CUDA events, median of "
-          f"{TIMED_RUNS})")
 
     # B3 alone on the 6x80 net's parameter count
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1554,11 +1823,6 @@ def phase_timing_train(dev):
 
 
 def phase_timing(dev, gen, servers):
-    import torch
-
-    from tpinn_torch.core import net
-    from tpinn_torch.kernels import mlp_taylor
-
     out = {}
     name, srv = servers[0]
     compiled = srv.compiled
@@ -1579,35 +1843,36 @@ def phase_timing(dev, gen, servers):
         out[f"residual_{n}"] = (k_ms, p_ms)
         print(f"  residual ({name}) N={n}: kernel {k_ms:.3f} ms, plain "
               f"{p_ms:.3f} ms (median of {TIMED_RUNS} synchronised runs each)")
-
-    # the kernel alone against its plain version, at the served shape
-    spec = net.MLPSpec(depth=6, width=80)
-    fm = net.feature_map_for(("minmax", "periodic"))
-    lo, hi = (0.1, 0.0), (1.0, 2 * math.pi)
-    params = net.init_params(gen, spec, fm, dev)
-    z = box_points(gen, 262_144, lo, hi, dev)
-    args = (params, z, spec, fm, lo, hi, IDX5)
-    events = {}
-    for which, fn in (("kernel", mlp_taylor.taylor2_streams),
-                      ("plain", mlp_taylor.taylor2_streams_reference)):
-        for _ in range(3):
-            fn(*args)
-        times = []
-        for _ in range(TIMED_RUNS):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn(*args)
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        events[which] = statistics.median(times)
-    n_flop = 2 * 262_144 * len(IDX5) * (3 * 80 + 5 * 80 * 80 + 80)
-    print(f"  taylor2_fwd alone N=262144 S=5 6x80: kernel {events['kernel']:.3f}"
-          f" ms ({n_flop / events['kernel'] / 1e9:.2f} TFLOP/s fp32), plain "
-          f"{events['plain']:.3f} ms (CUDA events, median of {TIMED_RUNS})")
-    out["kernel_alone"] = (events["kernel"], events["plain"])
     return out
+
+
+def bound(n_bytes, n_ops) -> dict:
+    """The least time the card could take for work of these bytes and
+    fp32 operations, and which of the two bounds it."""
+    t_b = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_o = n_ops / PEAK_FP32_FLOPS * 1e3
+    return {"bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
+def shape_rows(name, shapes, work_fn, tiling, times, sms, card) -> list:
+    """One row per timed shape of a kernel (phase 6's times under the
+    shape's key): its time, its plain version's, its bound and the plan
+    it ran under."""
+    rows = []
+    for key, label, spec, kinds, lo, hi, streams, n in shapes:
+        nf = 3                       # minmax x2 + periodic, or minmax x3
+        S = len(streams)
+        plan = tiling([nf] + [spec.width] * spec.depth + [1], S, n, sms)
+        k_ms, p_ms, *extra = times[key]
+        rows.append({"shape": label, "N": n, "S": S, "ms": k_ms,
+                     "plain_ms": p_ms, **(extra[0] if extra else {}),
+                     **bound(*work_fn(n, spec, nf, len(kinds), S)),
+                     **plan._asdict()})
+        print(f"  {name}, {label} (N={n}): {k_ms:.4f} ms, bound "
+              f"{rows[-1]['bound_ms']:.5f} ms ({100 * rows[-1]['bound_ms'] / k_ms:.1f}% "
+              f"of the time), plain {p_ms:.4f} ms; plan {plan}; on {card}")
+    return rows
 
 
 def phase_build() -> None:
@@ -1641,6 +1906,24 @@ def b2_only() -> None:
     phase_b2(dev, torch.Generator().manual_seed(SEED))
     phase("6. B2 timing")
     b2_times(dev)
+
+
+def b1_only() -> None:
+    """Phases 2, 3a and B1's timing of phase 6 alone, for fast iteration
+    on kernel B1."""
+    import torch
+
+    print(f"  card: {card_line()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda", 0)
+    phase("2. build")
+    phase_build()
+    phase("3a. B1 vs plain")
+    phase_kernel_vs_plain(dev, torch.Generator().manual_seed(SEED))
+    phase("6. B1 timing")
+    b1_times(dev)
+    b1_mode_times(dev)
 
 
 def main() -> int:
@@ -1697,6 +1980,8 @@ def main() -> int:
     phase("6. timing")
     times = phase_timing(dev, gen, servers)
     times.update(phase_timing_train(dev))
+    times.update(b1_times(dev))
+    mode_rows = b1_mode_times(dev)
     for n in (65_536, 262_144):
         k_ms, p_ms = times[f"residual_{n}"]
         print(f"  residual N={n}: kernel {k_ms:.3f} ms vs plain {p_ms:.3f} ms "
@@ -1709,77 +1994,40 @@ def main() -> int:
     print(f"  card: {card}")
     # the least time the card could take for each kernel's timed call: the
     # larger of its bytes (inputs read once, outputs written once) over the
-    # memory rate and its operations over the fp32 FMA peak.  Per point and
-    # stream a 6x80 net on 3 features costs 2*(3*80 + 5*80*80 + 80) FLOP
-    # forward; B2's count is b2_work's.
-    per_point = 2 * len(IDX5) * (3 * 80 + 5 * 80 * 80 + 80)
-    work = {  # name: (bytes, operations) of the call timed in phase 6
-        "taylor2_fwd": (4 * (262_144 * (2 + len(IDX5)) + ADAM_N),
-                        262_144 * per_point),
-        "taylor2_bwd": b2_work(RECIPE_N, annulus_spec(), 3, 2, len(IDX5)),
-        "adam": (4 * 7 * ADAM_N, 16 * ADAM_N)}
-    # the same at poisson_3d's batch: 5x64 on 3 features, S = 7
-    per_point_3d = 2 * len(IDX7) * (3 * 64 + 4 * 64 * 64 + 64)
-    work_3d = {
-        "taylor2_fwd": (4 * (P3D_N * (3 + len(IDX7)) + P3D_PARAMS),
-                        P3D_N * per_point_3d)}
-    l_ms, kq_ms, lq_ms = times["adam_library"]
-    # B2 at its timed shapes, each with the plan it ran under
+    # memory rate and its operations over the fp32 FMA peak; B1's and B2's
+    # counts are b1_work's and b2_work's at each timed shape
     from tpinn_torch.kernels import taylor_vjp
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    b2_rows = []
-    for key, label, spec, kinds, lo, hi, streams, n in b2_shapes():
-        d, w, S = len(kinds), spec.width, len(streams)
-        nf = 3                       # minmax x2 + periodic, or minmax x3
-        n_bytes, n_ops = b2_work(n, spec, nf, d, S)
-        t_b, t_o = n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / PEAK_FP32_FLOPS * 1e3
-        plan = taylor_vjp.tiling([nf] + [w] * spec.depth + [1], S, n, sms)
-        k_ms, p_ms = times[key]
-        b2_rows.append({
-            "shape": label, "N": n, "S": S, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": max(t_b, t_o),
-            "bound_by": "bytes" if t_b >= t_o else "operations",
-            "accumulate": plan.accumulate, "tile_points": plan.tp,
-            "blocks": plan.blocks, "scratch_bytes": plan.scratch_bytes})
-        print(f"  taylor2_bwd, {label} (N={n}): {k_ms:.4f} ms, bound "
-              f"{max(t_b, t_o):.5f} ms ({100 * max(t_b, t_o) / k_ms:.1f}% of "
-              f"the time), plain {p_ms:.4f} ms; plan {plan}; on {card}")
-    b2_extra = {"accumulate": b2_rows[0]["accumulate"],
-                "scratch_bytes": b2_rows[0]["scratch_bytes"],
-                "shapes": b2_rows}
+    b1_rows = shape_rows("taylor2_fwd", b1_shapes(), b1_work,
+                         mlp_taylor.tiling, times, sms, card)
+    b2_rows = shape_rows("taylor2_bwd", b2_shapes(), b2_work,
+                         taylor_vjp.tiling, times, sms, card)
+    work = {"adam": (4 * 7 * ADAM_N, 16 * ADAM_N)}
+    l_ms, kq_ms, lq_ms = times["adam_library"]
     rows = (("taylor2_fwd", "taylor2_fwd", "tpinn/kernels/mlp_taylor.py:155",
-             err_fwd, times["kernel_alone"], None, {}),
+             err_fwd, b1_rows[0],
+             {"w_mode": b1_rows[0]["w_mode"], "device_ms":
+              b1_rows[0]["device_ms"], "shapes": b1_rows,
+              "w_modes": mode_rows}),
             ("taylor2_bwd", "taylor2_bwd", "tpinn/kernels/taylor_vjp.py:203",
-             err_bwd, times["taylor2_bwd"], None, b2_extra),
+             err_bwd, b2_rows[0],
+             {"accumulate": b2_rows[0]["accumulate"],
+              "scratch_bytes": b2_rows[0]["scratch_bytes"],
+              "shapes": b2_rows}),
             ("adam_update", "adam", "tpinn/kernels/adam.py:46", err_adam,
-             times["adam"], l_ms,
+             dict(zip(("ms", "plain_ms"), times["adam"]), library_ms=l_ms,
+                  **bound(*work["adam"])),
              {"queued_ms": kq_ms, "library_queued_ms": lq_ms}))
     kernels = []
-    for name, src, where, err, (k_ms, p_ms), lib_ms, extra in rows:
-        n_bytes, n_ops = work[src]
-        t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = n_ops / PEAK_FP32_FLOPS * 1e3
-        if src in work_3d:
-            b3, o3 = work_3d[src]
-            bound_3d = max(b3 / PEAK_BYTES_PER_S, o3 / PEAK_FP32_FLOPS) * 1e3
-            k3, p3 = times[f"{src}_3d"]
-            extra = {**extra, "poisson_3d_batch": {
-                "N": P3D_N, "S": len(IDX7), "ms": k3, "plain_ms": p3,
-                "bound_ms": bound_3d,
-                "bound_by": ("bytes" if b3 / PEAK_BYTES_PER_S
-                             >= o3 / PEAK_FP32_FLOPS else "operations")}}
-            print(f"  {name} at N={P3D_N} S=7 5x64: {k3:.4f} ms, bound "
-                  f"{bound_3d:.5f} ms ({100 * bound_3d / k3:.1f}% of the "
-                  f"time), plain {p3:.4f} ms, on {card}")
+    for name, src, where, err, timed, extra in rows:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"tpinn_torch/kernels/csrc/{src}.cu", "replaces": where,
             "launches": launches[src], "max_abs_err": err,
-            "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms,
+            "ms": timed["ms"], "plain_ms": timed["plain_ms"],
+            "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
+            "library_ms": timed.get("library_ms"),
             "launches_by_path": {"serve": serve_launches if src ==
                                  "taylor2_fwd" else 0,
                                  "train": train_launches[src],
@@ -1787,10 +2035,11 @@ def main() -> int:
                                  "poisson_3d": launches[src],
                                  **{k: v[src] for k, v in
                                     other_launches.items()}}, **extra})
-        print(f"  {name}: {k_ms:.4f} ms, bound {kernels[-1]['bound_ms']:.5f} "
-              f"ms by {kernels[-1]['bound_by']} "
-              f"({100 * kernels[-1]['bound_ms'] / k_ms:.1f}% of the time), "
-              f"launches on the poisson_3d path {launches[src]}, on {card}")
+        k = kernels[-1]
+        print(f"  {name}: {k['ms']:.4f} ms, bound {k['bound_ms']:.5f} ms by "
+              f"{k['bound_by']} ({100 * k['bound_ms'] / k['ms']:.1f}% of the "
+              f"time), launches on the poisson_3d path {launches[src]}, on "
+              f"{card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1799,7 +2048,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--b2-only"]:
+    if sys.argv[1:2] == ["--b1-only"]:
+        b1_only()
+    elif sys.argv[1:2] == ["--b1-compare"] and len(sys.argv) == 3:
+        b1_compare(sys.argv[2])
+    elif sys.argv[1:2] == ["--b2-only"]:
         b2_only()
     elif sys.argv[1:2] == ["--b2-compare"] and len(sys.argv) == 3:
         b2_compare(sys.argv[2])

@@ -53,6 +53,22 @@ CASES = {
 }
 
 
+# kernel B1 only, with the W mode its plan must choose: heat_2d's recipe
+# net (each layer's W staged per tile) and the widest net the kernel
+# takes at S = 10 (W read through L1, the row stride without its padding)
+B1_CASES = {
+    "heat_2d-6x96-layer": (dict(depth=6, width=96), ("minmax", "minmax"), 3,
+                           (0.0, 0.0), (1.0, 1.0), [(), (0,), (1,), (0, 0)],
+                           2_003, "layer"),
+    "widest-2x724-S10-l1": (dict(depth=2, width=724, scl=1.3, epsil=0.7),
+                            ("minmax", "periodic", "identity"), 0,
+                            (0.0, 0.0, -1.0), (1.0, TWO_PI, 1.0),
+                            taylor.plan_streams([(i, j) for i in range(3)
+                                                 for j in range(i, 3)]),
+                            1_001, "l1"),
+}
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -83,6 +99,31 @@ def test_kernel_matches_plain_on_card(cuda_device, name):
     ref = mlp_taylor.taylor2_streams_reference(params, z, spec, fm, lb, ub,
                                                streams)
     assert got.shape == ref.shape == (z.shape[0], len(streams))
+    rel = (got - ref).abs().amax(dim=0) / ref.abs().amax(dim=0)
+    assert float(rel.max()) <= 1e-4, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(B1_CASES))
+def test_kernel_in_every_w_mode_on_card(cuda_device, name):
+    *case, mode = B1_CASES[name]
+    spec_kw, kinds, pad_to, lb, ub, streams, n = case
+    spec = net.MLPSpec(**spec_kw)
+    fm = net.feature_map_for(kinds, pad_to=pad_to)
+    gen = torch.Generator().manual_seed(0)
+    params = net.init_params(gen, spec, fm, cuda_device)
+    lo, hi = torch.tensor(lb), torch.tensor(ub)
+    z = (lo + torch.rand((n, len(lb)), generator=gen) * (hi - lo)).to(
+        cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    dims = [fm.num_features] + [spec.width] * spec.depth + [1]
+    assert mlp_taylor.tiling(dims, len(streams), n, sms).w_mode == mode
+    before = mlp_taylor.LAUNCHES
+    got = mlp_taylor.taylor2_streams(params, z, spec, fm, lb, ub, streams)
+    torch.cuda.synchronize()
+    assert mlp_taylor.LAUNCHES == before + 1
+    ref = mlp_taylor.taylor2_streams_reference(params, z, spec, fm, lb, ub,
+                                               streams)
     rel = (got - ref).abs().amax(dim=0) / ref.abs().amax(dim=0)
     assert float(rel.max()) <= 1e-4, rel
 

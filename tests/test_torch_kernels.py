@@ -175,18 +175,6 @@ def test_out_of_scope_raises():
         tmt.taylor2_streams(c["p_t"], zt.to("meta"), *base[2:], IDX5)
 
 
-def test_tile_points_fits_shared_memory():
-    assert tmt.tile_points(5, 80) == 32          # 102,400 B: two blocks per SM
-    assert tmt.tile_points(10, 80) == 16
-    assert tmt.tile_points(5, 24) == 64
-    for s, w in ((5, 80), (10, 512), (1, 16)):
-        tp = tmt.tile_points(s, w)
-        assert tp % tmt.POINTS_PER_THREAD == 0
-        assert 2 * s * tp * ((w + 3) // 4 * 4) * 4 <= tmt.SMEM_LIMIT
-    with pytest.raises(ValueError):
-        tmt.tile_points(10, 4096)
-
-
 # ---------------------------------------------------------------------------
 # Kernel B2 (taylor_vjp) and its autograd Function
 # ---------------------------------------------------------------------------
@@ -536,6 +524,134 @@ def test_backward_plan_takes_every_width_the_earlier_kernel_took(n_streams):
         assert plan.smem_bytes <= 232_448 and plan.kc >= 4
     with pytest.raises(ValueError, match="shared memory"):
         tvjp.tiling([3, 4 * widest, 1], n_streams, 1_000)
+
+# the nets of chip_smoke.py's b1_mode_cases(), which B1 cannot keep
+# resident: (dims, S, points, W mode, W in chunks)
+_SMOKE_B1_MODES = [([3] + [96] * 6 + [1], 4, 28_000, "layer", False),
+                   ([3] + [128] * 6 + [1], 5, 16_384, "layer", False),
+                   ([3] + [256] * 3 + [1], 5, 4_096, "layer", True),
+                   ([4] + [700] * 3 + [1], 10, 2_048, "l1", False)]
+_B1_PLAN_CASES = (
+    [pytest.param(dims, s, sizes, "layer" if name == "heat_2d/1" else
+                  "resident", False, id=name)
+     for name, dims, s, sizes in _recipe_b2_nets()]
+    + [pytest.param(dims, s, [n], "resident", False, id=f"smoke-{dims[1]}x"
+                    f"{len(dims) - 2}-S{s}-N{n}") for dims, s, n in _SMOKE_B2]
+    + [pytest.param(dims, s, [n], mode, chunked, id=f"smoke-{mode}-{dims[1]}x"
+                    f"{len(dims) - 2}-S{s}-N{n}")
+       for dims, s, n, mode, chunked in _SMOKE_B1_MODES]
+    + [pytest.param([3] + [128] * 6 + [1], 5, [16_384, 1], "layer", False,
+                    id="6x128-layer")])
+
+
+def _r4(x):
+    return (x + 3) // 4 * 4
+
+
+@pytest.mark.parametrize("dims,n_streams,sizes,mode,chunked", _B1_PLAN_CASES)
+def test_forward_plan(dims, n_streams, sizes, mode, chunked):
+    """B1's plan: within one block's shared memory, the W mode named and
+    chosen from the sizes alone (every shipped recipe but heat_2d keeps
+    the whole net's W resident), W in chunks only where a layer's W does
+    not fit, the largest tile of at most 32 points whose threads fill one
+    round of the block's 512 and fit, a multiple of 4 points, the fewest
+    warps that hold them, spread over at most one block per SM
+    with no block more than one tile ahead of another."""
+    k_in = [_r4(k) for k in dims[:-2]]          # inputs of the hidden layers
+    wide = max(dims[1:-1])
+    # threads a point: a lane pair per 8 columns, a thread per 4 at S > 7
+    per_point = 2 * -(-wide // 8) if n_streams <= 7 else -(-wide // 4)
+    stride = tmt._row_stride(max(dims[:-1]))
+    for n in sizes:
+        plan = tmt.tiling(dims, n_streams, n, 132)
+        assert plan == tmt.tiling(dims, n_streams, n, 132)
+        assert plan.w_mode == mode and mode in tmt.W_MODES
+        assert plan.smem_bytes == tmt.smem_bytes(
+            n_streams, plan.tp, plan.kc, plan.ks) <= 232_448
+        assert plan.ks % 4 == 0 and plan.ks >= (
+            _r4(max(dims[:-1])) if mode == "l1" else stride - 4)
+        assert plan.tp % 4 == 0 and plan.tp <= 32
+        assert plan.threads == min(tmt.THREADS,
+                                   -(-plan.tp * per_point // 32) * 32)
+        if mode == "resident":
+            assert plan.kc == sum(k_in)
+        elif mode == "layer":
+            assert 4 <= plan.kc <= max(k_in) and plan.kc % 4 == 0
+            assert (plan.kc < max(k_in)) == chunked
+            assert tmt.smem_bytes(n_streams, plan.tp, sum(k_in),
+                                  stride) > 232_448
+        else:
+            assert plan.kc == 0
+            assert tmt.smem_bytes(n_streams, plan.tp, 4, stride) > 232_448
+        for tp in (t for t in tmt.TILE_POINTS if t > plan.tp):
+            assert (tp * per_point > tmt.THREADS or tmt.smem_bytes(
+                n_streams, tp, 0, _r4(max(dims[:-1]))) > 232_448)
+        n_tiles = -(-n // plan.tp)
+        rounds = -(-n_tiles // plan.blocks)
+        assert plan.blocks <= min(132, n_tiles)
+        assert rounds == -(-n_tiles // 132)      # as few rounds as the SMs allow
+        assert (plan.blocks - 1) * rounds < n_tiles
+
+
+@pytest.mark.parametrize("n_streams", [2, 5, 10])
+def test_forward_plan_takes_every_width_the_earlier_kernel_took(n_streams):
+    """The earlier B1 took a net while its two stream buffers fit in a
+    block at 4 points a tile (2·S·4·round4(width) floats); the plan takes
+    every such width and refuses the next."""
+    widest = max(w for w in range(1, 10_000)
+                 if 2 * n_streams * 4 * _r4(w) * 4 <= 232_448)
+    for w in range(1, widest + 1):
+        plan = tmt.tiling([3, w, w, 1], n_streams, 1_000)
+        assert plan.smem_bytes <= 232_448 and plan.w_mode in tmt.W_MODES
+    with pytest.raises(ValueError, match="shared memory"):
+        tmt.tiling([3, widest + 1, widest + 1, 1], n_streams, 1_000)
+
+
+def test_supports_is_unchanged():
+    """``supports`` accepts exactly the nets the earlier B1 took (its rule
+    is frozen below), over coordinates, feature kinds, widths, depths and
+    families; and the plan takes each accepted net at its worst stream
+    count."""
+    def earlier(spec, fm):
+        if not (spec.is_plain and spec.out_dim == 1):
+            return False
+        if any(k not in ("minmax", "periodic", "identity") for k in fm.kinds):
+            return False
+        d = len(fm.kinds)
+        worst_s = 1 + d + d * (d + 1) // 2
+        if d > 4 or worst_s > 10:
+            return False
+        widest = max(spec.width, fm.num_features)
+        return (spec.depth + 1 <= 16 and fm.num_features <= 16
+                and 2 * worst_s * 4 * ((widest + 3) & ~3) * 4 <= 232_448)
+
+    kind_sets = [("minmax",), ("periodic",), ("identity",), ("periodic_fit",),
+                 ("minmax", "periodic"), ("minmax", "periodic_fit"),
+                 ("minmax",) * 3, ("minmax", "periodic", "identity"),
+                 ("minmax",) * 4]
+    widths = (1, 16, 80, 96, 724, 725, 1000, 1208, 1209, 1452, 1453, 2420,
+              2421, 4000)
+    families = ({}, {"out_dim": 2}, {"fourier_features": 8},
+                {"modified": True})
+    taken = 0
+    for kinds in kind_sets:
+        for pad in (0, 3):
+            fm = tnet.feature_map_for(kinds, pad_to=pad)
+            for width in widths:
+                for depth in (0, 1, 6, 15, 16):
+                    for extra in families:
+                        spec = tnet.MLPSpec(depth=depth, width=width, **extra)
+                        want = earlier(spec, fm)
+                        assert tmt.supports(spec, fm) == want, (kinds, pad,
+                                                                width, depth,
+                                                                extra)
+                        if want:
+                            d = len(kinds)
+                            dims = [fm.num_features] + [width] * depth + [1]
+                            tmt.tiling(dims, 1 + d + d * (d + 1) // 2, 1_000)
+                            taken += 1
+    assert taken > 100
+
 
 # ---------------------------------------------------------------------------
 # Kernel B3 (adam)
