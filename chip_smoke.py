@@ -42,8 +42,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
       so that both accumulation modes ("smem", "global") and W staged in
       chunks run.
    c. B3 against its plain version over 1,000 steps, with a learning-rate
-      change half-way, on n = 32,801 (the 6x80 net on 3 features) and an
-      odd n.
+      change half-way, on n = 32,801 (the 6x80 net on 3 features), an odd
+      n and 140,001 (past one grid: the threads loop), each on aligned
+      vectors and on views one float off 16-byte alignment: through the
+      Adam phase's launcher (FusedAdam, the step and the bias corrections
+      read on the device) and through adam_update_flat, which must agree
+      bitwise; then 10 launcher steps captured in one CUDA graph (the
+      capture counts no launch), replayed 3 times (lr halved between the
+      first and the second replay), against 30 plain steps, with the
+      device step at 31; a fourth replay, past the launcher's table, must
+      update nothing and make the device step raise.
 4. Serve (the first slice's path): two annulus checkpoints written from
    a seeded initialisation in the format run_training writes — the 6x80
    hard-BC net and a 2-stage hard-BC chain — each served by PINNServer on
@@ -57,9 +65,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    run_training on the hard-BC annulus at the recipe's batch: stage 1
    6x80 tanh, stage 2 6x50 sin composed, about 300 Adam steps each
    through B1 + B2 + B3, then L-BFGS; launch counts reset before and read
-   after, loss drops, rel-L2, the 11 artifacts and the checkpoints
-   checked; the stage-2 checkpoint is served and /predict checked
-   against the trainer's predictor.
+   after (here and in 5b-5d B3 once per Adam step, every launch through
+   the phase's launcher), loss drops, rel-L2, the 11 artifacts and the
+   checkpoints checked; the stage-2 checkpoint is served and /predict
+   checked against the trainer's predictor.
 5b. Recipe (the flagship recipe's path): get_recipe("annulus_laplace") as
    written — 6x80, the 46,000-point batch, lbfgs_grid=450,
    lbfgs_rounds=3, lsq_polish="auto", deflation="full",
@@ -105,27 +114,36 @@ Phases, each of which raises on failure (the script then exits non-zero):
    against the plain engine at the recipe's shape, at bench.py's and at
    poisson_3d's; B2 alone against its plain version at the recipe's
    batch and L-BFGS grid (202,500) and at poisson_3d's (7,200, 13,824),
-   B3 alone against its plain version; B3
-   and the one PyTorch call that computes the same update
-   (torch._fused_adam_) alone and in a queue of 100 launches behind a
-   long kernel, which reads the device time per launch apart from the
-   host call.
+   B3 (the Adam phase's launcher) alone against its plain version and
+   against the one PyTorch call that computes the same update
+   (torch._fused_adam_, lr a device tensor) in four measures: around the
+   call, host time a call, device time a launch in a queue of 100 behind
+   a long kernel, and device time a launch replayed from a CUDA graph.
 
-Partial runs for work on kernels B1 and B2 (not part of the smoke):
+Partial runs for work on kernels B1, B2 and B3 (not part of the smoke):
 
     python3 chip_smoke.py --b1-only            # phases 2, 3a, B1's timing
     python3 chip_smoke.py --b1-compare DIR     # B1 here and in checkout DIR
     python3 chip_smoke.py --b2-only            # phases 2, 3b, B2's timing
     python3 chip_smoke.py --b2-compare DIR     # B2 here and in checkout DIR
+    python3 chip_smoke.py --b3-only            # phases 2, 3c, B3's timing
+    python3 chip_smoke.py --b3-compare DIR     # B3 here and in checkout DIR
     python3 chip_smoke.py --lbfgs-compare DIR  # phases 5b, 5c in DIR, here
+    python3 chip_smoke.py --p3d-repeat DIR N   # 5c's training N times each
 
 The compares time the kernel at phase 6's shapes in DIR (say a git
 archive of the parent commit) and in this tree, one process each, in the
-order DIR, here, here, DIR, on one card; B1's also prints per shape this
-tree's mean time over DIR's (around the call, on the device and on the
-host) and the largest difference between the two trees' outputs.  The last runs phases 5b and 5c in DIR and then here,
-each printing per run an LBFGS_COUNTS line: Adam steps, L-BFGS iterates
-and evaluations per round, kernel launches.
+order DIR, here, here, DIR, on one card; B1's and B3's also print this
+tree's mean time over DIR's per shape or measure (B1: around the call,
+on the device and on the host; B3: those and a graph replay, beside
+torch._fused_adam_ in each run) and the largest difference between the
+two trees' outputs (B3: after 1,000 steps).  The last runs phases 5b and
+5c in DIR and then here, each printing per run an LBFGS_COUNTS line:
+Adam steps, L-BFGS iterates and evaluations per round, kernel launches.
+--p3d-repeat runs phase 5c's training N times in DIR and N times here,
+two processes per tree at once on one card, and prints each run's rel-L2,
+B3 launchers' device steps and loss-history digest, the distinct outcomes
+per tree, and where a run's history parts from DIR's first run.
 
 The line before the last is a JSON object describing the kernels (each
 with its launches on the newest main path, phase 5c, and on every
@@ -133,8 +151,9 @@ earlier path, its time, its plain version's, the card's bound for the
 same work and, where one PyTorch call computes the same function, that
 call's time; B1 and B2 with every timed shape and its plan under
 "shapes", B1's times around the call, with its device and host times
-beside them, and its W modes against "l1" under "w_modes"); the last
-line is {"ok": true, "device": {...}}.
+beside them, and its W modes against "l1" under "w_modes"; B3 with its
+and the library's host, device and graph-replay times); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -210,6 +229,10 @@ P3D_ADAM = 1000
 P3D_LBFGS = 1200
 P3D_REL_L2 = 1e-3
 QUEUED = 100        # back-to-back launches timed behind a long kernel
+# B3 past one grid of 132 SMs x 4 blocks x 256 threads: its threads loop
+LOOP_N = 140_001
+# steps of B3's launcher in b3_times: its calls and graph replays (1,224)
+B3_TIMED_STEPS = 2000
 # the card's published peaks (H100 SXM data sheet): fp32 outside the tensor
 # cores, HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
@@ -538,45 +561,152 @@ def phase_b2(dev, gen):
     return worst_abs
 
 
+def at_offset(x, offset):
+    """A copy of the 1-D ``x`` as a view ``offset`` elements into a buffer
+    of its own: at offset 1 a float32 vector sits 4 bytes off 16-byte
+    alignment."""
+    import torch
+
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    buf[offset:] = x
+    return buf[offset:]
+
+
 def phase_b3(dev):
     """B3 against its plain version over ADAM_STEPS steps, lr halved at
-    the midpoint."""
+    the midpoint, through the Adam phase's launcher (FusedAdam, the step
+    counted on the device) and through adam_update_flat side by side, at
+    n = ADAM_N and 1,001 (one element a thread) and LOOP_N (the threads
+    loop), on aligned vectors and on views one float off alignment; then
+    the graph check."""
     import torch
 
     from tpinn_torch.kernels import adam
 
     worst_abs = 0.0
-    for n in (ADAM_N, 1_001):
-        gen = torch.Generator(device=dev).manual_seed(SEED)
-        p = torch.randn(n, generator=gen, device=dev)
-        m, v = torch.zeros_like(p), torch.zeros_like(p)
-        lr = torch.full((1,), 1e-3, device=dev)
-        pr, mr, vr, lr_r = p.clone(), m.clone(), v.clone(), lr.clone()
-        before = adam.LAUNCHES
-        for t in range(1, ADAM_STEPS + 1):
-            if t == ADAM_STEPS // 2 + 1:
-                lr.mul_(0.5)
-                lr_r.mul_(0.5)
-            g = torch.randn(n, generator=gen, device=dev)
-            adam.adam_update_flat(g, p, m, v, lr, t)
-            adam.adam_update_reference(g, pr, mr, vr, lr_r, t)
-        torch.cuda.synchronize()
-        check(adam.LAUNCHES - before == ADAM_STEPS,
-              f"B3 launched {adam.LAUNCHES - before} times in {ADAM_STEPS} "
-              f"steps")
-        errs = []
-        for what, a, b in (("p", p, pr), ("m", m, mr), ("v", v, vr)):
-            err = (a - b).abs().max().item()
-            scale = b.abs().max().item()
-            check(err <= ADAM_RTOL * scale,
-                  f"B3 n={n} {what}: max |diff| {err:.3e}, max |ref| "
-                  f"{scale:.3e}")
-            errs.append(f"{what} {err:.2e}")
-            worst_abs = max(worst_abs, err)
-        print(f"  B3 n={n}: {ADAM_STEPS} steps, lr halved at step "
-              f"{ADAM_STEPS // 2 + 1}; max abs err vs plain "
-              + ", ".join(errs))
-    return worst_abs
+    for n in (ADAM_N, 1_001, LOOP_N):
+        for offset in (0, 1):
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            p0 = torch.randn(n, generator=gen, device=dev)
+            z = torch.zeros_like(p0)
+            routes = {"launcher": [at_offset(x, offset) for x in (p0, z, z)],
+                      "adam_update_flat": [at_offset(x, offset)
+                                           for x in (p0, z, z)]}
+            pr, mr, vr = p0.clone(), z.clone(), z.clone()
+            lr = torch.full((1,), 1e-3, device=dev)
+            lr_r = lr.clone()
+            launcher = adam.FusedAdam(*routes["launcher"], lr, ADAM_STEPS)
+            before = adam.LAUNCHES
+            for t in range(1, ADAM_STEPS + 1):
+                if t == ADAM_STEPS // 2 + 1:
+                    lr.mul_(0.5)
+                    lr_r.mul_(0.5)
+                g = at_offset(torch.randn(n, generator=gen, device=dev),
+                              offset)
+                launcher.step(g)
+                adam.adam_update_flat(g, *routes["adam_update_flat"], lr, t)
+                adam.adam_update_reference(g, pr, mr, vr, lr_r, t)
+            torch.cuda.synchronize()
+            what = f"B3 n={n} offset {offset}"
+            check(adam.LAUNCHES - before == 2 * ADAM_STEPS,
+                  f"{what}: launched {adam.LAUNCHES - before} times in "
+                  f"{ADAM_STEPS} steps of two routes")
+            check(launcher.t == ADAM_STEPS + 1,
+                  f"{what}: the device step reads {launcher.t}")
+            check(all(torch.equal(a, b) for a, b in
+                      zip(*routes.values())),
+                  f"{what}: the launcher and adam_update_flat differ")
+            errs = []
+            for name, a, b in zip("pmv", routes["launcher"], (pr, mr, vr)):
+                err = (a - b).abs().max().item()
+                scale = b.abs().max().item()
+                check(err <= ADAM_RTOL * scale,
+                      f"{what} {name}: max |diff| {err:.3e}, max |ref| "
+                      f"{scale:.3e}")
+                errs.append(f"{name} {err:.2e}")
+                worst_abs = max(worst_abs, err)
+            print(f"  {what} ({'aligned' if offset == 0 else 'unaligned'}): "
+                  f"{ADAM_STEPS} steps, lr halved at step "
+                  f"{ADAM_STEPS // 2 + 1}; launcher and adam_update_flat "
+                  f"identical, device step {launcher.t}; max abs err vs "
+                  f"plain " + ", ".join(errs))
+    return max(worst_abs, b3_graph_check(dev))
+
+
+def b3_graph_check(dev, k=10, replays=3):
+    """``k`` launcher steps captured in one CUDA graph, replayed
+    ``replays`` times, each time with a new gradient copied into the
+    captured one and lr halved (outside the graph) between the first and
+    the second replay, against k * replays plain steps on the same
+    gradients; the device step must read k * replays + 1, and the capture
+    must count no launch.  One replay more runs past the launcher's table:
+    it must leave p, m and v as they were and make the device step raise.
+    Returns the largest absolute difference."""
+    import torch
+
+    from tpinn_torch.kernels import adam
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    p = torch.randn(ADAM_N, generator=gen, device=dev)
+    m, v = torch.zeros_like(p), torch.zeros_like(p)
+    grads = [torch.randn(ADAM_N, generator=gen, device=dev)
+             for _ in range(replays)]
+    pr, mr, vr = p.clone(), m.clone(), v.clone()
+    lr = torch.full((1,), 1e-3, device=dev)
+    lr_r = lr.clone()
+    launcher = adam.FusedAdam(p, m, v, lr, k * replays)
+    g_static = torch.empty_like(p)
+    graph = torch.cuda.CUDAGraph()
+    before = adam.LAUNCHES
+    with torch.cuda.graph(graph):
+        for _ in range(k):
+            launcher.step(g_static)
+    torch.cuda.synchronize()
+    check(launcher.t == 1, f"B3 graph: capture moved the device step to "
+                           f"{launcher.t}")
+    check(adam.LAUNCHES == before, f"B3 graph: the capture counted "
+                                   f"{adam.LAUNCHES - before} launches")
+    for r, g in enumerate(grads):
+        if r == 1:
+            lr.mul_(0.5)
+        g_static.copy_(g)
+        graph.replay()
+    for t in range(1, k * replays + 1):
+        if t == k + 1:
+            lr_r.mul_(0.5)
+        adam.adam_update_reference(grads[(t - 1) // k], pr, mr, vr, lr_r, t)
+    torch.cuda.synchronize()
+    check(launcher.t == k * replays + 1,
+          f"B3 graph: the device step reads {launcher.t} after {replays} "
+          f"replays of {k} launches (the capture did not see the launches "
+          f"on PyTorch's current stream)")
+    worst, errs = 0.0, []
+    for name, a, b in zip("pmv", (p, m, v), (pr, mr, vr)):
+        err = (a - b).abs().max().item()
+        scale = b.abs().max().item()
+        check(err <= ADAM_RTOL * scale,
+              f"B3 graph {name}: max |diff| {err:.3e}, max |ref| {scale:.3e}")
+        errs.append(f"{name} {err:.2e}")
+        worst = max(worst, err)
+    kept = [x.clone() for x in (p, m, v)]
+    graph.replay()                       # past the table: nothing updated
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip((p, m, v), kept)),
+          "B3 graph: a replay past the launcher's table changed p, m or v")
+    try:
+        past = launcher.t
+    except RuntimeError as e:
+        past = str(e)
+    check(isinstance(past, str) and "past the last step" in past,
+          f"B3 graph: after a replay past the table the device step read "
+          f"{past!r} instead of raising")
+    print(f"  B3 graph, n={ADAM_N}: {k} launcher steps captured on PyTorch's "
+          f"current stream (no launch counted), replayed {replays} times (lr "
+          f"halved between the first and the second replay): device step "
+          f"{k * replays + 1}; max abs err vs {k * replays} plain steps "
+          + ", ".join(errs) + "; one replay more, past the table, updated "
+          f"nothing and the device step raised: {past}")
+    return worst
 
 
 def annulus_spec(width=80):
@@ -809,8 +939,9 @@ def phase_train(dev):
     lines = []
     reset_launches()
     t0 = time.perf_counter()
-    res = run_training(problem, spec, output_dir=str(out),
-                       log_fn=lines.append, device=dev)
+    with adam_launchers() as built:
+        res = run_training(problem, spec, output_dir=str(out),
+                           log_fn=lines.append, device=dev)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_launches()
@@ -824,6 +955,7 @@ def phase_train(dev):
     for k, count in launches.items():
         check(count >= sum(n_adam),
               f"{k} launched {count} times for {sum(n_adam)} Adam steps")
+    check_adam_route("train", built, launches["adam"], n_adam)
 
     h1, h2 = res.stages[0].history, res.stages[1].history
     drop = h1[0, 0] / h1[n_adam[0] - 1, 0]
@@ -1046,12 +1178,50 @@ def lbfgs_counts():
         optim.lbfgs_minimize = inner
 
 
-def run_recipe_cut(name, dev, budgets, **spec_kw):
+@contextlib.contextmanager
+def adam_launchers():
+    """Records every B3 launcher (FusedAdam) the Adam phases build inside:
+    yields the list, or None in a tree without the launcher (a parent
+    checkout in lbfgs_compare)."""
+    from tpinn_torch.kernels import adam
+
+    inner = getattr(adam, "FusedAdam", None)
+    if inner is None:
+        yield None
+        return
+    built = []
+
+    class Recorded(inner):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            built.append(self)
+
+    adam.FusedAdam = Recorded
+    try:
+        yield built
+    finally:
+        adam.FusedAdam = inner
+
+
+def check_adam_route(what, built, launches, n_adam):
+    """B3 launched once per Adam step, every launch through a launcher: the
+    launchers' device steps (each starts at 1) add up to the launches."""
+    check(launches == sum(n_adam),
+          f"{what}: adam launched {launches} times for {sum(n_adam)} Adam "
+          f"steps")
+    if built is not None:
+        taken = sum(x.t - 1 for x in built)
+        check(len(built) == len(n_adam) and taken == launches,
+              f"{what}: {len(built)} launchers took {taken} steps, B3 "
+              f"launched {launches} times in {len(n_adam)} Adam phases")
+
+
+def run_recipe_cut(name, dev, budgets, out_dir=SMOKE_DIR, **spec_kw):
     """get_recipe(name) with stage k's (adam_epochs, lbfgs_epochs) set to
     budgets[k] and the TrainSpec fields of ``spec_kw`` replaced, through
-    run_training on the card with the launch counts reset before and read
-    after.  Returns (problem, spec, result, log lines, launches, Adam steps
-    per stage, seconds)."""
+    run_training on the card (artifacts under ``out_dir``/name) with the
+    launch counts reset before and read after.  Returns (problem, spec,
+    result, log lines, launches, Adam steps per stage, seconds)."""
     import dataclasses
 
     import torch
@@ -1066,12 +1236,12 @@ def run_recipe_cut(name, dev, budgets, **spec_kw):
                                                lbfgs_epochs=b)
                            for st, (a, b) in zip(spec.stages, budgets)),
         **spec_kw)
-    out = SMOKE_DIR / name
+    out = Path(out_dir) / name
     shutil.rmtree(out, ignore_errors=True)
     lines = []
     reset_launches()
     t0 = time.perf_counter()
-    with lbfgs_counts() as rounds:
+    with lbfgs_counts() as rounds, adam_launchers() as built:
         res = run_training(problem, spec, output_dir=str(out),
                            log_fn=lines.append, device=dev)
     torch.cuda.synchronize()
@@ -1084,9 +1254,7 @@ def run_recipe_cut(name, dev, budgets, **spec_kw):
     check(len(n_adam) == len(budgets)
           and all(n >= a for n, (a, _) in zip(n_adam, budgets)),
           f"{name}: Adam phases logged {n_adam} for budgets {budgets}")
-    check(launches["adam"] == sum(n_adam),
-          f"{name}: adam launched {launches['adam']} times for "
-          f"{sum(n_adam)} Adam steps")
+    check_adam_route(name, built, launches["adam"], n_adam)
     check(res.rel_l2 is not None and math.isfinite(res.rel_l2),
           f"{name}: rel-L2 {res.rel_l2}")
     print(f"  run_training(get_recipe({name!r}), budgets {budgets}): "
@@ -1403,6 +1571,33 @@ def host_ms(fn, calls=20) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, blocker) -> float:
+    """Device time per launch of ``fn`` replayed from a CUDA graph that
+    captured QUEUED calls of it: each replay enqueued behind ``blocker`` (a
+    long kernel), between two events, so the host's part stays outside;
+    median of five replays after one warm-up replay."""
+    import torch
+
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        for _ in range(QUEUED):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        blocker()
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / QUEUED)
+    return statistics.median(times)
+
+
 def alternating_ms(fns) -> dict:
     """Median synchronised host time of each of two callables, alternated
     run by run (a, b, b, a, ...) after three warm-up calls each."""
@@ -1417,16 +1612,19 @@ def alternating_ms(fns) -> dict:
     return {k: statistics.median(v) for k, v in ts.items()}
 
 
-def adam_step(loss_fn, params, data, lw, ref, update):
+def adam_step(loss_fn, params, data, lw, ref, plain=False):
     """One Adam step as the flat-layout phase takes it: loss, the flat
-    gradient in one autograd call, then ``update`` in place."""
+    gradient in one autograd call, then the update in place, through the
+    phase's launcher (B3) or, with ``plain``, B3's plain version."""
     import torch
 
     from tpinn_torch.core import optim
+    from tpinn_torch.kernels import adam
 
     flat, unravel = optim.ravel_tree(params)
     m, v = torch.zeros_like(flat), torch.zeros_like(flat)
     lr = torch.full((1,), 1e-3, device=flat.device)
+    launcher = None if plain else adam.FusedAdam(flat, m, v, lr, ADAM_STEPS)
     t = [0]
 
     def step():
@@ -1435,7 +1633,10 @@ def adam_step(loss_fn, params, data, lw, ref, update):
         loss_n, _ = loss_fn(unravel(flat), data, lw, ref)
         (g,) = torch.autograd.grad(loss_n, flat)
         with torch.no_grad():
-            update(g, flat.detach(), m, v, lr, t[0])
+            if plain:
+                adam.adam_update_reference(g, flat.detach(), m, v, lr, t[0])
+            else:
+                launcher.step(g)
 
     return step
 
@@ -1727,6 +1928,45 @@ def b2_compare(parent: str) -> None:
         "'ms': {k: v[0] for k, v in t.items()}}))"])
 
 
+def b3_compare(parent: str) -> None:
+    """B3 alone (b3_times) in this tree and in another checkout
+    (``parent``, e.g. a git archive of the parent commit), in the order
+    parent, this, this, parent, one process each; per measure this tree's
+    mean over the parent's and each run's torch._fused_adam_, then the
+    largest difference between the two trees' p, m and v after
+    ADAM_STEPS steps (b3_run)."""
+    import torch
+
+    here, there = str(ROOT), str(Path(parent).resolve())
+    saved = ROOT / "build" / "b3_compare"
+    outs = in_trees((there, here, here, there), [
+        f"t = s.b3_times(dev, save='{saved}/run%d.pt' % run)",
+        "print('B3_TIMES ' + json.dumps({'tree': tree, 'ms': t}))"])
+    ms = [json.loads(line.split(" ", 1)[1])["ms"] for out in outs
+          for line in out.splitlines() if line.startswith("B3_TIMES ")]
+    res = [torch.load(saved / f"run{r}.pt") for r in range(4)]
+    for what, key in (("around the call", "ms"), ("host a call", "host_ms"),
+                      ("on the device, queued", "device_ms"),
+                      ("replayed from a graph", "graph_ms")):
+        t = [m[key] for m in ms]
+        lib = [m["library_" + key] for m in ms]
+        us = lambda x: f"{x * 1e3:.2f}" if x is not None else "-"
+        ratio = (f"{(t[1] + t[2]) / (t[0] + t[3]):.3f}x" if None not in t
+                 else "-")
+        print(f"  B3 {what}: this tree {us(t[1])}, {us(t[2])} us, the parent "
+              f"{us(t[0])}, {us(t[3])} us: {ratio}; torch._fused_adam_ "
+              f"{', '.join(us(x) for x in lib)} us in the same four runs; "
+              f"this tree's B3 no slower than the library in both its runs: "
+              f"{all(t[r] <= lib[r] for r in (1, 2))}")
+    diff = max((a - b).abs().max().item() for a, b in zip(res[1], res[0]))
+    same = max((a - b).abs().max().item() for r, s in ((1, 2), (0, 3))
+               for a, b in zip(res[r], res[s]))
+    print(f"  B3 after {ADAM_STEPS} steps (n={ADAM_N}, lr halved at the "
+          f"midpoint): max |this - parent| {diff:.3e} over p, m, v, within "
+          f"a tree {same:.1e}")
+    print("B3_COMPARE " + json.dumps({"ms": ms, "max_diff": diff}))
+
+
 def lbfgs_compare(parent: str) -> None:
     """Phases 5b and 5c in another checkout (``parent``) and in this tree,
     in that order: their LBFGS_COUNTS lines give the kernels' launches
@@ -1738,6 +1978,224 @@ def lbfgs_compare(parent: str) -> None:
         "s.phase_poisson3d(dev, s.card_line())"])
 
 
+def p3d_runs(dev, runs: int, tag: str) -> None:
+    """Phase 5c's training (the poisson_3d recipe at phase 5c's cut, no
+    serving) ``runs`` times in this process, for p3d_repeat: one P3D_RUN
+    line per run with rel-L2 to all digits, the L-BFGS evaluations, the
+    launches, the device step of every B3 launcher (read after the run;
+    a block whose slot fell behind, or a flagged slot, raises, and the
+    run reports the error) and the SHA-1 of the loss history (a row per
+    Adam step and per L-BFGS record), which is kept under build/."""
+    import hashlib
+
+    import numpy as np
+
+    saved = ROOT / "build" / "p3d_repeat"
+    saved.mkdir(parents=True, exist_ok=True)
+    for k in range(runs):
+        row = {"tag": tag, "run": k}
+        try:
+            with adam_launchers() as built:
+                _, _, res, _, launches, n_adam, seconds = run_recipe_cut(
+                    "poisson_3d", dev, [(P3D_ADAM, P3D_LBFGS)],
+                    out_dir=saved / f"{tag}_out", tail_max=50,
+                    density_every=100, plateau_every=200)
+            hist = np.ascontiguousarray(res.history)
+            np.save(saved / f"{tag}_{k}.npy", hist)
+            row.update(rel_l2=res.rel_l2, adam_steps=n_adam,
+                       launches=launches, seconds=seconds,
+                       adam_t=None if built is None else [x.t for x in built],
+                       history_sha1=hashlib.sha1(hist.tobytes()).hexdigest())
+        except Exception as e:  # reported per run; the others go on
+            row["error"] = f"{type(e).__name__}: {e}"
+        print("P3D_RUN " + json.dumps(row), flush=True)
+
+
+def p3d_repeat(parent: str, runs: int) -> None:
+    """Phase 5c's training ``runs`` times in this tree and ``runs`` times
+    in another checkout (``parent``, e.g. a git archive of the parent
+    commit), on one card, two worker processes per tree at once (p3d_runs,
+    each its half of the runs in turn), so that both trees run under the
+    same load.  Prints every P3D_RUN line, then per tree the distinct
+    outcomes (rel-L2, L-BFGS evaluations, history digest) with their
+    counts, and for every run whose history is not the parent's first
+    run's (its first that ended without an error), the first row where
+    they part.  Worker logs go to
+    build/p3d_repeat/."""
+    import collections
+    import os
+
+    import numpy as np
+
+    print(f"  card: {card_line()}")
+    saved = ROOT / "build" / "p3d_repeat"
+    shutil.rmtree(saved, ignore_errors=True)
+    saved.mkdir(parents=True)
+    trees = {"parent": str(Path(parent).resolve()), "this": str(ROOT)}
+    code = "\n".join([_IN_TREE, "from tpinn_torch.kernels import _build",
+                      "_build.load_all(s.KERNELS)",
+                      "s.p3d_runs(dev, int(sys.argv[4]), sys.argv[5])"])
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    procs = []
+    for w in range(4):
+        name = ("parent", "this")[w % 2]
+        tag = f"{name}{w // 2}"
+        log = open(saved / f"{tag}.log", "w")
+        procs.append((tag, log, subprocess.Popen(
+            [sys.executable, "-c", code, trees[name],
+             str(ROOT / "chip_smoke.py"), str(w),
+             str((runs + 1 - w // 2) // 2), tag],
+            cwd=trees[name], stdout=log, stderr=subprocess.STDOUT,
+            text=True, env=env)))
+    try:
+        for tag, log, proc in procs:
+            proc.wait(timeout=3000)
+    finally:
+        for tag, log, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    rows = []
+    for tag, _, proc in procs:
+        text = (saved / f"{tag}.log").read_text()
+        found = [json.loads(line.split(" ", 1)[1]) for line in
+                 text.splitlines() if line.startswith("P3D_RUN ")]
+        for row in found:
+            print("P3D_RUN " + json.dumps(row))
+        if proc.returncode != 0:
+            print(text[-4000:])
+            raise RuntimeError(f"the worker {tag} failed")
+        rows += found
+    # the parent's first run that ended without an error
+    first = next((r for r in rows if r["tag"].startswith("parent")
+                  and "error" not in r), None)
+    base = (None if first is None else
+            np.load(saved / f"{first['tag']}_{first['run']}.npy"))
+    for name in ("parent", "this"):
+        mine = [r for r in rows if r["tag"].startswith(name)]
+        outcomes = collections.Counter(
+            r.get("error") or (repr(r["rel_l2"]), r["history_sha1"][:12])
+            for r in mine)
+        print(f"  {name}: {len(mine)} runs, {len(outcomes)} outcome(s): "
+              + "; ".join(f"{n} x {o}" for o, n in outcomes.most_common()))
+        for r in mine:
+            if "error" in r or base is None:
+                continue
+            hist = np.load(saved / f"{r['tag']}_{r['run']}.npy")
+            rows_n = min(len(hist), len(base))
+            parted = np.nonzero(np.any(hist[:rows_n] != base[:rows_n],
+                                       axis=1))[0]
+            if len(parted) or len(hist) != len(base):
+                at = int(parted[0]) if len(parted) else rows_n
+                print(f"  {name} {r['tag']} run {r['run']}: history parts "
+                      f"from the parent's first run at row {at} (Adam "
+                      f"steps {r['adam_steps']}), rel-L2 {r['rel_l2']!r}, "
+                      f"launchers' device steps {r['adam_t']}")
+    print("P3D_REPEAT " + json.dumps(
+        {name: collections.Counter(
+            r.get("error") or repr(r["rel_l2"]) for r in rows
+            if r["tag"].startswith(name)) for name in ("parent", "this")}))
+
+
+def b3_run(dev, steps=ADAM_STEPS):
+    """(p, m, v) on the host after ``steps`` Adam steps at n = ADAM_N from
+    seeded vectors and gradients, lr halved at the midpoint: through the
+    Adam phase's launcher where the tree has one, else through
+    adam_update_flat with the host's step (a tree before the launcher)."""
+    import torch
+
+    from tpinn_torch.kernels import adam
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    p = torch.randn(ADAM_N, generator=gen, device=dev)
+    m, v = torch.zeros_like(p), torch.zeros_like(p)
+    lr = torch.full((1,), 1e-3, device=dev)
+    launcher = (adam.FusedAdam(p, m, v, lr, steps)
+                if hasattr(adam, "FusedAdam") else None)
+    for t in range(1, steps + 1):
+        if t == steps // 2 + 1:
+            lr.mul_(0.5)
+        g = torch.randn(ADAM_N, generator=gen, device=dev)
+        if launcher is None:
+            adam.adam_update_flat(g, p, m, v, lr, t)
+        else:
+            launcher.step(g)
+    return [x.cpu() for x in (p, m, v)]
+
+
+def b3_times(dev, save=None) -> dict:
+    """B3 and torch._fused_adam_ (the one PyTorch call that computes the
+    same update, with lr as a device tensor; timed here, used nowhere in
+    the port) at n = ADAM_N in four measures each: CUDA events around one
+    call (``ms``, the host's part of the call included), host time a call
+    (``host_ms``), device time a launch in a queue of QUEUED behind a long
+    kernel (``device_ms``) and device time a launch replayed from a CUDA
+    graph of QUEUED launches (``graph_ms``); B3's plain version around the
+    call.  B3 is the Adam phase's launcher (FusedAdam.step) where the tree
+    has one, else adam_update_flat at a fixed step, so this also times
+    another tree's B3 (b3_compare; no graph there: that B3 takes its step
+    from the host).  ``save``, a path, keeps b3_run's vectors there."""
+    import torch
+
+    from tpinn_torch.kernels import adam
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    g, p = (torch.randn(ADAM_N, generator=gen, device=dev) for _ in range(2))
+    m, v = torch.zeros_like(p), torch.zeros_like(p)
+    lr = torch.full((1,), 1e-3, device=dev)
+    launcher = (adam.FusedAdam(p, m, v, lr, B3_TIMED_STEPS)
+                if hasattr(adam, "FusedAdam") else None)
+    kernel = ((lambda: launcher.step(g)) if launcher is not None else
+              (lambda: adam.adam_update_flat(g, p, m, v, lr, 10)))
+    step10 = [torch.full((), 10.0, device=dev)]
+    lib_pmv = [x.clone() for x in (p, m, v)]
+
+    def library(pmv=lib_pmv):
+        torch._fused_adam_([pmv[0]], [g], [pmv[1]], [pmv[2]], [], step10,
+                           lr=lr, beta1=0.9, beta2=0.999, weight_decay=0.0,
+                           eps=1e-8, amsgrad=False, maximize=False)
+
+    state = [x.clone() for x in (p, m, v)]
+    want = [x.clone() for x in state]
+    library(state)
+    adam.adam_update_reference(g, *want, lr, 10)
+    err = max((a - b).abs().max().item() for a, b in zip(state, want))
+    check(err <= 1e-5 * max(x.abs().max().item() for x in want),
+          f"torch._fused_adam_ vs B3's plain version: max abs err {err}")
+    big = torch.randn((8192, 8192), device=dev)
+    blocker = lambda: [torch.matmul(big, big) for _ in range(4)]
+    out = {}
+    for key, measure in (("ms", event_ms), ("host_ms", host_ms),
+                         ("device_ms", lambda fn: queued_ms(fn, blocker)),
+                         ("graph_ms", lambda fn: graph_ms(fn, blocker))):
+        out[key] = (measure(kernel) if launcher is not None
+                    or key != "graph_ms" else None)
+        out["library_" + key] = measure(library)
+    out["plain_ms"] = event_ms(
+        lambda: adam.adam_update_reference(g, p, m, v, lr, 10))
+    if launcher is not None:
+        # t raises if a launch ran past the table (and updated nothing)
+        check(launcher.t <= B3_TIMED_STEPS,
+              f"B3 timing ran past its launcher's {B3_TIMED_STEPS} steps")
+    us = {k: (f"{x * 1e3:.2f}" if x is not None else "-")
+          for k, x in out.items()}
+    route = "launcher" if launcher is not None else "adam_update_flat"
+    print(f"  adam alone n={ADAM_N} ({route}), B3 / torch._fused_adam_: "
+          f"around the call {us['ms']} / "
+          f"{us['library_ms']} us, host a call {us['host_ms']} / "
+          f"{us['library_host_ms']} us, on the device in a queue of {QUEUED} "
+          f"{us['device_ms']} / {us['library_device_ms']} us, replayed "
+          f"from a graph of {QUEUED} {us['graph_ms']} / "
+          f"{us['library_graph_ms']} us; plain {us['plain_ms']} us around "
+          f"the call (CUDA events; the library agrees with the plain "
+          f"version to {err:.1e})", flush=True)
+    if save is not None:
+        Path(save).parent.mkdir(parents=True, exist_ok=True)
+        torch.save(b3_run(dev), save)
+    return out
+
+
 def phase_timing_train(dev):
     """The Adam step, kernel engine (B1 + B2 + B3) against the plain
     engine (plain B1, autograd, plain Adam), and B2 and B3 alone."""
@@ -1745,7 +2203,6 @@ def phase_timing_train(dev):
 
     from tpinn_torch import problems
     from tpinn_torch.core import loss as loss_mod
-    from tpinn_torch.kernels import adam
 
     out = {}
     shapes = (("recipe", problems.with_hard_bc(problems.annulus_laplace()),
@@ -1764,11 +2221,10 @@ def phase_timing_train(dev):
         steps = {
             "kernel": adam_step(loss_mod.make_loss(pred, compiled,
                                                    engine="kernel"),
-                                params, data, lw, ref, adam.adam_update_flat),
+                                params, data, lw, ref),
             "plain": adam_step(loss_mod.make_loss(plain_engine(pred), compiled,
                                                   engine="fused"),
-                               params, data, lw, ref,
-                               adam.adam_update_reference)}
+                               params, data, lw, ref, plain=True)}
         ms = alternating_ms(steps)
         out[f"step_{label}"] = (ms["kernel"], ms["plain"])
         print(f"  Adam step, {label} shape ({mspec.depth}x{mspec.width}"
@@ -1779,46 +2235,7 @@ def phase_timing_train(dev):
 
     out.update(b2_times(dev))
 
-    # B3 alone on the 6x80 net's parameter count
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    vecs = [torch.randn(ADAM_N, generator=gen, device=dev) for _ in range(2)]
-    g, p = vecs
-    m, v = torch.zeros_like(p), torch.zeros_like(p)
-    lr = torch.full((1,), 1e-3, device=dev)
-    k_ms = event_ms(lambda: adam.adam_update_flat(g, p, m, v, lr, 10))
-    p_ms = event_ms(lambda: adam.adam_update_reference(g, p, m, v, lr, 10))
-    out["adam"] = (k_ms, p_ms)
-    print(f"  adam alone n={ADAM_N}: kernel {k_ms * 1e3:.1f} us, plain "
-          f"{p_ms * 1e3:.1f} us (CUDA events, median of {TIMED_RUNS})")
-
-    # the one PyTorch call that computes the same update, on the same
-    # vectors and hyperparameters; timed here, used nowhere in the port
-    step10 = [torch.full((), 10.0, device=dev)]
-
-    def library(pp=p, mm=m, vv=v):
-        torch._fused_adam_([pp], [g], [mm], [vv], [], step10, lr=1e-3,
-                           beta1=0.9, beta2=0.999, weight_decay=0.0, eps=1e-8,
-                           amsgrad=False, maximize=False)
-
-    state = [t.clone() for t in (p, m, v)]
-    want = [t.clone() for t in state]
-    library(*state)
-    adam.adam_update_reference(g, *want, lr, 10)
-    err = max((a - b).abs().max().item() for a, b in zip(state, want))
-    check(err <= 1e-5 * max(t.abs().max().item() for t in want),
-          f"torch._fused_adam_ vs B3's plain version: max abs err {err}")
-    l_ms = event_ms(library)
-    big = torch.randn((8192, 8192), device=dev)
-    blocker = lambda: [torch.matmul(big, big) for _ in range(4)]
-    kq_ms = queued_ms(lambda: adam.adam_update_flat(g, p, m, v, lr, 10),
-                      blocker)
-    lq_ms = queued_ms(library, blocker)
-    out["adam_library"] = (l_ms, kq_ms, lq_ms)
-    print(f"  adam alone n={ADAM_N}: torch._fused_adam_ {l_ms * 1e3:.1f} us "
-          f"(CUDA events around one call, median of {TIMED_RUNS}; agrees "
-          f"with the plain version to {err:.1e}); device time per launch in "
-          f"a queue of {QUEUED} behind a long kernel: kernel "
-          f"{kq_ms * 1e3:.2f} us, torch._fused_adam_ {lq_ms * 1e3:.2f} us")
+    out["adam"] = b3_times(dev)
     return out
 
 
@@ -1926,6 +2343,22 @@ def b1_only() -> None:
     b1_mode_times(dev)
 
 
+def b3_only() -> None:
+    """Phases 2, 3c and B3's timing of phase 6 alone, for fast iteration
+    on kernel B3."""
+    import torch
+
+    print(f"  card: {card_line()}")
+    print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}")
+    dev = torch.device("cuda", 0)
+    phase("2. build")
+    phase_build()
+    phase("3c. B3 vs plain")
+    phase_b3(dev)
+    phase("6. B3 timing")
+    b3_times(dev)
+
+
 def main() -> int:
     import torch
 
@@ -2004,7 +2437,7 @@ def main() -> int:
     b2_rows = shape_rows("taylor2_bwd", b2_shapes(), b2_work,
                          taylor_vjp.tiling, times, sms, card)
     work = {"adam": (4 * 7 * ADAM_N, 16 * ADAM_N)}
-    l_ms, kq_ms, lq_ms = times["adam_library"]
+    b3 = times["adam"]
     rows = (("taylor2_fwd", "taylor2_fwd", "tpinn/kernels/mlp_taylor.py:155",
              err_fwd, b1_rows[0],
              {"w_mode": b1_rows[0]["w_mode"], "device_ms":
@@ -2016,9 +2449,11 @@ def main() -> int:
               "scratch_bytes": b2_rows[0]["scratch_bytes"],
               "shapes": b2_rows}),
             ("adam_update", "adam", "tpinn/kernels/adam.py:46", err_adam,
-             dict(zip(("ms", "plain_ms"), times["adam"]), library_ms=l_ms,
-                  **bound(*work["adam"])),
-             {"queued_ms": kq_ms, "library_queued_ms": lq_ms}))
+             {"ms": b3["ms"], "plain_ms": b3["plain_ms"],
+              "library_ms": b3["library_ms"], **bound(*work["adam"])},
+             {**{k: b3[k] for k in ("host_ms", "device_ms", "graph_ms",
+                                    "library_host_ms", "library_device_ms",
+                                    "library_graph_ms")}}))
     kernels = []
     for name, src, where, err, timed, extra in rows:
         kernels.append({
@@ -2056,7 +2491,13 @@ if __name__ == "__main__":
         b2_only()
     elif sys.argv[1:2] == ["--b2-compare"] and len(sys.argv) == 3:
         b2_compare(sys.argv[2])
+    elif sys.argv[1:2] == ["--b3-only"]:
+        b3_only()
+    elif sys.argv[1:2] == ["--b3-compare"] and len(sys.argv) == 3:
+        b3_compare(sys.argv[2])
     elif sys.argv[1:2] == ["--lbfgs-compare"] and len(sys.argv) == 3:
         lbfgs_compare(sys.argv[2])
+    elif sys.argv[1:2] == ["--p3d-repeat"] and len(sys.argv) == 4:
+        p3d_repeat(sys.argv[2], int(sys.argv[3]))
     else:
         sys.exit(main())

@@ -12,7 +12,9 @@ held against its plain PyTorch version on the same card: per stream,
 max |kernel - plain| / max |plain| <= 1e-4 (fp32; the two sum in another
 order); residuals rtol 1e-3, atol 1e-4.  B2's gradient, per leaf: max
 |kernel - plain| <= 1e-4 * max |plain| + 1e-6.  B3 against its plain
-version: max |diff| <= 1e-6 * max |plain| per vector.
+version: max |diff| <= 1e-6 * max |plain| per vector, through
+``adam_update_flat`` and through the Adam phase's launcher (aligned and
+unaligned vectors, and replayed from a CUDA graph).
 """
 
 import math
@@ -231,6 +233,98 @@ def test_adam_kernel_matches_plain_on_card(cuda_device):
     with pytest.raises(TypeError):
         adam.adam_update_flat(g.double(), p.double(), m.double(), v.double(),
                               lr.double(), 1)
+
+
+def _adam_vectors(dev, n, offset, gen):
+    """p, m, v as views at ``offset`` floats into buffers of their own (an
+    offset of 1 leaves them 4 bytes off 16-byte alignment)."""
+    def at(x):
+        buf = torch.zeros(n + offset, device=dev)
+        buf[offset:] = x
+        return buf[offset:]
+    return (at(torch.randn(n, generator=gen, device=dev)),
+            at(torch.zeros(n, device=dev)), at(torch.zeros(n, device=dev)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,offset", [(4_099, 0), (4_099, 1), (140_003, 0),
+                                      (140_003, 1)])
+def test_adam_launcher_matches_plain_on_card(cuda_device, n, offset):
+    """The Adam phase's launcher over 200 steps, lr halved at step 101,
+    against the plain version: one element a thread (4,099), past one
+    grid of a 132-SM card so that the threads loop (140,003), on aligned
+    vectors and on views one float off alignment; the step counted on the
+    device."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    p, m, v = _adam_vectors(cuda_device, n, offset, gen)
+    assert (p.data_ptr() % 16 == 0) == (offset == 0)
+    lr = torch.full((1,), 1e-2, device=cuda_device)
+    pr, mr, vr, lr_r = p.clone(), m.clone(), v.clone(), lr.clone()
+    launcher = adam.FusedAdam(p, m, v, lr, 200)
+    before = adam.LAUNCHES
+    for t in range(1, 201):
+        if t == 101:
+            lr.mul_(0.5)
+            lr_r.mul_(0.5)
+        g = torch.randn(n, generator=gen, device=cuda_device)
+        launcher.step(g)
+        adam.adam_update_reference(g, pr, mr, vr, lr_r, t)
+    torch.cuda.synchronize()
+    assert adam.LAUNCHES == before + 200
+    assert launcher.t == 201
+    for a, b in ((p, pr), (m, mr), (v, vr)):
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+    with pytest.raises(ValueError, match="past the last step"):
+        launcher.step(g)
+    with pytest.raises(ValueError, match="contiguous 1-D"):
+        launcher.step(g.cpu())
+
+
+@pytest.mark.cuda
+def test_adam_launcher_graph_replay_on_card(cuda_device):
+    """Ten launcher steps captured in one CUDA graph, replayed three times
+    with a new gradient each time and lr halved between the first and the
+    second replay, against 30 plain steps; the step counted on the device
+    reads 31, and the capture counts no launch.  A fourth replay runs past
+    the launcher's table: it updates nothing and the device step raises."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    n = 32_801
+    p, m, v = _adam_vectors(cuda_device, n, 0, gen)
+    lr = torch.full((1,), 1e-3, device=cuda_device)
+    grads = [torch.randn(n, generator=gen, device=cuda_device)
+             for _ in range(3)]
+    pr, mr, vr, lr_r = p.clone(), m.clone(), v.clone(), lr.clone()
+    launcher = adam.FusedAdam(p, m, v, lr, 30)
+    g_static = torch.empty_like(p)
+    graph = torch.cuda.CUDAGraph()
+    before = adam.LAUNCHES
+    with torch.cuda.graph(graph):
+        for _ in range(10):
+            launcher.step(g_static)
+    torch.cuda.synchronize()
+    assert launcher.t == 1                  # capture launched nothing
+    assert adam.LAUNCHES == before
+    for k, g in enumerate(grads):
+        if k == 1:
+            lr.mul_(0.5)
+        g_static.copy_(g)
+        graph.replay()
+    for t in range(1, 31):
+        if t == 11:
+            lr_r.mul_(0.5)
+        adam.adam_update_reference(grads[(t - 1) // 10], pr, mr, vr, lr_r, t)
+    torch.cuda.synchronize()
+    assert launcher.t == 31
+    for a, b in ((p, pr), (m, mr), (v, vr)):
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+    kept = [x.clone() for x in (p, m, v)]
+    graph.replay()                          # steps 31-40: past the table
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip((p, m, v), kept))
+    with pytest.raises(RuntimeError, match="past the last step"):
+        launcher.t
+    with pytest.raises(RuntimeError, match="past the last step"):
+        launcher.step(g_static)
 
 
 @pytest.mark.cuda

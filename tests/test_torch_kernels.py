@@ -19,7 +19,10 @@ through ``taylor.taylor2_mlp`` in float64 (rtol 1e-10).  The autograd
 Function (B1 forward, B2 backward) is checked with B1's launcher replaced
 by a gradient-less call, as the CUDA launch is.  B3's plain version is
 held against ``optax.adam`` (rtol 1e-5, atol 1e-7, as
-tests/test_kernels.py holds the Pallas Adam).
+tests/test_kernels.py holds the Pallas Adam), through ``adam_update_flat``
+and through the Adam phase's launcher ``FusedAdam`` (its plain path, over
+200 steps with an lr change, also against the Pallas Adam in interpret
+mode); the launcher's bias table is held against ``_constants`` bitwise.
 
 The CUDA kernel itself runs only on a card: its tests are in
 tests/test_torch_cuda.py (marked ``cuda``; they skip without a card).
@@ -713,3 +716,125 @@ def test_adam_plain_matches_pallas_and_refuses():
         tadam.adam_update_flat(torch.from_numpy(g), p, m, v, 0.01 * lr[0], 1)
     with pytest.raises(ValueError, match="contiguous 1-D"):
         tadam.adam_update_flat(torch.zeros(n, 1), p, m, v, lr, 1)
+
+
+def _adam_inputs(n=1_001, steps=200):
+    rng = np.random.default_rng(0)
+    return (rng.standard_normal(n).astype(np.float32),
+            rng.standard_normal((steps, n)).astype(np.float32))
+
+
+def test_adam_launcher_matches_optax_with_lr_change():
+    """The Adam phase's launcher (one FusedAdam for the phase, its step
+    counted by the launcher) on its plain path against optax.adam, the lr
+    halved in place at step 101."""
+    import optax
+
+    p0, grads = _adam_inputs()
+    opt = optax.inject_hyperparams(optax.adam)(learning_rate=1e-3)
+    p_ox = jnp.asarray(p0)
+    state = opt.init(p_ox)
+    p = torch.from_numpy(p0.copy())
+    m, v = torch.zeros_like(p), torch.zeros_like(p)
+    lr = torch.full((1,), 1e-3)
+    launcher = tadam.FusedAdam(p, m, v, lr, len(grads))
+    before = tadam.LAUNCHES
+    for t, g in enumerate(grads, start=1):
+        if t == 101:
+            lr.mul_(0.5)
+            state.hyperparams["learning_rate"] = jnp.asarray(5e-4)
+        upd, state = opt.update(jnp.asarray(g), state)
+        p_ox = optax.apply_updates(p_ox, upd)
+        assert launcher.t == t
+        assert launcher.step(torch.from_numpy(g))[0] is p      # in place
+    assert launcher.t == len(grads) + 1
+    assert tadam.LAUNCHES == before                # the plain path
+    for got, want in ((p, p_ox), (m, state.inner_state[0].mu),
+                      (v, state.inner_state[0].nu)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-7)
+
+
+def test_adam_launcher_matches_pallas_with_lr_change():
+    """The launcher against the Pallas kernel in interpret mode (jitted,
+    lr and step traced) over the same 200 steps.  The betas go to the
+    Pallas kernel as float32 scalars, so it forms 1 − β in float32 as
+    tpinn's optax phase and the port do (from Python floats it takes them
+    in float64: v then sits 1.3e-5 apart, the gap of 1 − 0.999 in the two
+    precisions)."""
+    import functools
+
+    from tpinn.kernels import adam as jadam
+
+    p0, grads = _adam_inputs()
+    pallas = jax.jit(functools.partial(
+        jadam.adam_update_flat, b1=np.float32(0.9), b2=np.float32(0.999),
+        block=256, interpret=True))
+    pj, mj, vj = jnp.asarray(p0), jnp.zeros(len(p0)), jnp.zeros(len(p0))
+    p = torch.from_numpy(p0.copy())
+    m, v = torch.zeros_like(p), torch.zeros_like(p)
+    lr = torch.full((1,), 1e-3)
+    launcher = tadam.FusedAdam(p, m, v, lr, len(grads))
+    for t, g in enumerate(grads, start=1):
+        if t == 101:
+            lr.mul_(0.5)
+        pj, mj, vj = pallas(jnp.asarray(g), pj, mj, vj,
+                            jnp.float32(lr.item()), t)
+        launcher.step(torch.from_numpy(g))
+    for got, want in ((p, pj), (m, mj), (v, vj)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-7)
+
+
+def test_adam_bias_table_matches_constants():
+    """The launcher's table of (1 − β₁ᵗ, 1 − β₂ᵗ) holds ``_constants``'s
+    float32 values bitwise for every step, also past t ≈ 985, where
+    β₁ᵗ = 0.9ᵗ underflows float32, and from a later start."""
+    steps = 1_200
+    table = tadam.bias_table(0.9, 0.999, 1, steps)
+    assert table.dtype == np.float32 and table.shape == (steps, 2)
+    for t in range(1, steps + 1):
+        _, _, bc1, bc2 = tadam._constants(0.9, 0.999, t)
+        assert table[t - 1, 0] == bc1 and table[t - 1, 1] == bc2
+    with np.errstate(under="ignore"):
+        assert np.power(np.float32(0.9), np.float32(steps)) == 0.0
+    assert table[-1, 0] == 1.0
+    np.testing.assert_array_equal(tadam.bias_table(0.9, 0.999, 501, 700),
+                                  table[500:])
+
+
+def test_adam_launcher_refuses():
+    n = 33
+    p, m, v = torch.zeros(n), torch.zeros(n), torch.zeros(n)
+    lr = torch.full((1,), 0.01)
+    launcher = tadam.FusedAdam(p, m, v, lr, 2)
+    g = torch.ones(n)
+    launcher.step(g)
+    launcher.step(g)
+    with pytest.raises(ValueError, match="past the last step"):
+        launcher.step(g)
+    assert launcher.t == 3
+    launcher = tadam.FusedAdam(p, m, v, lr, 5, start=4)
+    with pytest.raises(ValueError, match="contiguous 1-D"):
+        launcher.step(torch.ones(n + 1))                   # shape
+    with pytest.raises(ValueError, match="contiguous 1-D"):
+        launcher.step(torch.ones(n, 1))
+    with pytest.raises(ValueError, match="contiguous 1-D"):
+        launcher.step(torch.ones(n, dtype=torch.float64))  # dtype
+    with pytest.raises(ValueError, match="contiguous 1-D"):
+        launcher.step(torch.ones(n, device="meta"))        # device
+    with pytest.raises(ValueError, match="contiguous 1-D"):
+        launcher.step(torch.ones(2 * n)[::2])              # not contiguous
+    assert launcher.t == 4                   # nothing taken by a refusal
+    with pytest.raises(ValueError, match="start"):
+        tadam.FusedAdam(p, m, v, lr, 5, start=0)
+    with pytest.raises(ValueError, match="steps"):
+        tadam.FusedAdam(p, m, v, lr, -1)
+    with pytest.raises(ValueError, match="lr must be"):
+        tadam.FusedAdam(p, m, v, torch.full((1,), 0.01, dtype=torch.float64),
+                        5)
+    with pytest.raises(ValueError, match="must match p"):
+        tadam.FusedAdam(p, m[1:], v, lr, 5)
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        tadam.FusedAdam(*(torch.zeros(n, device="meta"),) * 3,
+                        torch.zeros(1, device="meta"), 5)

@@ -3,10 +3,12 @@
 The Adam phase runs the same losses as tests/test_optim.py with
 ``sample_fn=None`` (point draws would compare RNG bits, not the
 automaton) in both packages: histories, plateau-halved learning rates,
-``lr_min``, the tail and ``epochs=0``, and the flat layout against the
-tree layout.  Tolerances: rtol 1e-5, atol 1e-6 on histories and
-parameters (float32 Adam trajectories of a few hundred steps that round
-differently in XLA and in torch).  L-BFGS is held against scipy on
+``lr_min``, the tail (also to its last step) and ``epochs=0``, and the
+flat layout against the tree layout, through the phase's ``FusedAdam``
+launchers (one per vector, stepped once per Adam step).  Tolerances:
+rtol 1e-5, atol 1e-6 on histories and parameters (float32 Adam
+trajectories of a few hundred steps that round differently in XLA and in
+torch).  L-BFGS is held against scipy on
 Rosenbrock and against tpinn on a quadratic, with both history cadences.
 """
 
@@ -169,20 +171,73 @@ def _mlp_inputs():
     return params, data
 
 
+@pytest.fixture
+def launchers(monkeypatch):
+    """Records every FusedAdam the Adam phase builds; the one-call
+    adam_update_flat must not be reached."""
+    built = []
+
+    class Recorded(topt.adam_kernel.FusedAdam):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            built.append(self)
+
+    def refused(*args, **kwargs):
+        raise AssertionError("the Adam phase called adam_update_flat")
+
+    monkeypatch.setattr(topt.adam_kernel, "FusedAdam", Recorded)
+    monkeypatch.setattr(topt.adam_kernel, "adam_update_flat", refused)
+    return built
+
+
 @pytest.mark.parametrize("layout", ["flat", "tree"])
-def test_adam_layouts_match_tpinn_flat(layout):
+def test_adam_layouts_match_tpinn_flat(layout, launchers):
     """Both layouts of the port against tpinn's flat layout on a 4-leaf
     pytree (Adam is elementwise: one vector or one update per leaf is the
-    same math)."""
+    same math), each through the phase's launchers: one for the flat
+    vector, one per leaf for the tree, each built for epochs + tail_max
+    steps and stepped once per Adam step."""
     params, data = _mlp_inputs()
     cfg = dict(epochs=120, lr=0.02, resample_every=15, plateau_every=40,
                tail_max=30, log_every=10)
     rj, _, _, _ = _run_both(_mlp_j, _mlp_t, params, data, cfg)
+    launchers.clear()
     _, rt, _, _ = _run_both(_mlp_j, _mlp_t, params, data,
                             dict(cfg, layout=layout))
     _assert_same(rj, rt)
     assert set(rt.params) == {"l1", "l2"}
     assert rt.params["l1"]["w"].shape == (3, 8)
+    sizes = sorted(int(x.p.numel()) for x in launchers)
+    assert sizes == ([3 * 8 + 8 + 8 + 1] if layout == "flat"
+                     else [1, 8, 8, 24])
+    for x in launchers:
+        assert x._end == 1 + 120 + 30 and x.t == 1 + rt.n_valid
+
+
+def _still_j(params, data, lw, ref):
+    loss = jnp.sum((params["w"] - data["target"]) ** 2)
+    one = jnp.ones(())
+    return loss / ref, jnp.stack([one, one, one])
+
+
+def _still_t(params, data, lw, ref):
+    loss = torch.sum((params["w"] - data["target"]) ** 2)
+    one = torch.ones(())
+    return loss / ref, torch.stack([one, one, one])
+
+
+def test_adam_tail_to_the_launchers_last_step(launchers):
+    """A loss row that never beats the final window's minimum: the tail
+    takes all tail_max steps, so the launcher runs to the last row of its
+    bias table, against tpinn's phase."""
+    cfg = dict(epochs=60, lr=0.05, plateau_every=0, tail_max=25)
+    rj, rt, _, _ = _run_both(_still_j, _still_t, QUAD_PARAMS, QUAD_DATA, cfg)
+    _assert_same(rj, rt)
+    assert rt.n_valid == 85
+    (launcher,) = launchers
+    assert launcher.t == launcher._end == 86
+    with pytest.raises(ValueError, match="past the last step"):
+        launcher.step(torch.zeros(2))
 
 
 def test_adam_refusals():

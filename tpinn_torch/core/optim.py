@@ -21,9 +21,10 @@ changes in place, and the loss rows go into a preallocated device
 history: the main loop never reads the host.  Only the tail condition and
 the ``log_fn`` replay (every ``10·log_every`` steps) do.  The parameter
 update is kernel B3 (tpinn_torch.kernels.adam) on CUDA tensors, its plain
-version on CPU tensors: with ``layout="flat"`` on ONE vector holding every
-parameter (one launch per step, the loss sees views of it), with
-``layout="tree"`` once per leaf.
+version on CPU tensors, through one ``FusedAdam`` launcher per vector
+built at the start of the phase for ``epochs + tail_max`` steps: with
+``layout="flat"`` ONE vector holds every parameter (one launch per step,
+the loss sees views of it), with ``layout="tree"`` one per leaf.
 
 L-BFGS
 ------
@@ -176,28 +177,30 @@ def make_adam_phase(
             def to_tree(vs):
                 return _rebuild(params, iter(v.view(s)
                                              for v, s in zip(vs, shapes)))
-        m = [torch.zeros_like(x) for x in vecs]
-        v = [torch.zeros_like(x) for x in vecs]
         lr = torch.full((1,), cfg.lr, dtype=vecs[0].dtype, device=dev)
+        # one launcher per vector for the whole phase: step t = 1, 2, ...
+        # counted on the device, its bias corrections tabled once
+        updates = [adam_kernel.FusedAdam(
+            x.detach(), torch.zeros_like(x), torch.zeros_like(x), lr,
+            cfg.epochs + cfg.tail_max, cfg.b1, cfg.b2, cfg.eps) for x in vecs]
         h_dtype = ref.dtype
 
-        def step_update(t: int):
+        def step_update():
             for x in vecs:
                 x.requires_grad_(True)
             loss_n, info = loss_fn(to_tree(vecs), data, lw, ref)
             grads = torch.autograd.grad(loss_n, vecs, allow_unused=True)
             with torch.no_grad():
-                for x, g, mi, vi in zip(vecs, grads, m, v):
-                    g = torch.zeros_like(x) if g is None else g.contiguous()
-                    adam_kernel.adam_update_flat(g, x.detach(), mi, vi, lr, t,
-                                                 cfg.b1, cfg.b2, cfg.eps)
+                for x, g, update in zip(vecs, grads, updates):
+                    update.step(torch.zeros_like(x) if g is None
+                                else g.contiguous())
             return info.detach()
 
         hist = torch.zeros((cfg.epochs, info_width), dtype=h_dtype, device=dev)
         ring = torch.zeros((ring_n,), dtype=h_dtype, device=dev)
         logged = 0
         for step in range(cfg.epochs):
-            info = step_update(step + 1)
+            info = step_update()
             hist[step] = info
             ring[step % ring_n] = info[0]
             with torch.no_grad():
@@ -240,7 +243,7 @@ def make_adam_phase(
                            device=dev)
         n_tail = 0
         while llast >= lmin and n_tail < cfg.tail_max:
-            info = step_update(cfg.epochs + n_tail + 1)
+            info = step_update()
             tail[n_tail] = info
             llast = float(info[0])
             n_tail += 1
