@@ -17,7 +17,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
       262,144, a ragged 1,077 and the 202,500 points of the recipe's
       L-BFGS grid), a sin-first net with pad_to=3, a 3-coordinate net, and
       the poisson_3d recipe's 5x64 net with its S = 7 plan at its batch
-      (7,200) and its L-BFGS grid (24^3 = 13,824); then, in the other W
+      (7,200) and its L-BFGS grid (24^3 = 13,824), and the marching
+      windows' 4x64 tanh nets (convection_1d: S = 3, wave_1d: S = 5), in
+      the first and the last window's slab, at the batch a step (5,632 and
+      7,168 points) and at the density grid (101^2, 111^2); then, in the other W
       modes of its plan, heat_2d's 6x96 at its batch (28,000) and a 6x128
       at 16,384 ("layer"), a 3x256 at 4,096 ("layer", W in chunks) and a
       3x700 net with 3 coordinates, S = 10, at 2,048 ("l1").  Each case
@@ -30,7 +33,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
       through the plain Taylor-2 recurrence, per leaf, on the 6x80
       annulus net at the recipe's batch (46,000), a ragged 1,077 and the
       recipe's L-BFGS grid (450^2 = 202,500), the pad_to=3 net, the
-      3-coordinate net and the poisson_3d net at its two sizes; the same
+      3-coordinate net, the poisson_3d net at its two sizes and the
+      marching windows' nets at their batch; the same
       under the hard-BC product rule at those sizes, the 3-D product rule
       of poisson_3d included; points that require a gradient must be
       refused.  Each case prints B2's plan (points per tile, blocks, rows
@@ -43,7 +47,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
       chunks run.
    c. B3 against its plain version over 1,000 steps, with a learning-rate
       change half-way, on n = 32,801 (the 6x80 net on 3 features), an odd
-      n and 140,001 (past one grid: the threads loop), each on aligned
+      n, 140,001 (past one grid: the threads loop) and 12,801 (the
+      marching windows' 4x64 net on 3 features), each on aligned
       vectors and on views one float off 16-byte alignment: through the
       Adam phase's launcher (FusedAdam, the step and the bias corrections
       read on the device) and through adam_update_flat, which must agree
@@ -104,6 +109,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
    masked domain; with lsq_polish and deflation asked for, both skipped
    with a log line), kdv_1d (order 3: the generic engine, B1 and B2 0
    times).
+5e. Marching (the time-marching slice's path): the three marching
+   recipes through run_time_marching at their full width and batch (4x64
+   tanh, 4,096 + 1,024 points and 512 per BC group a step), each window's
+   budgets cut (MARCH_CUTS: convection_1d 8 windows of 300 Adam steps /
+   lbfgs_epochs 150 against 20,000 / 6,000; wave_1d 4 of 300 / 150
+   against 20,000 / 6,000; allen_cahn 8 of 100 / 60 against 12,000 /
+   4,000; tail_max 20, density_every 100, plateau_every 200): launch
+   counts reset before each recipe and read after (B1 and B2 in
+   convection_1d and wave_1d, B1 and B2 no time in allen_cahn, whose
+   periodic_fit features take the generic engine; B3 once per Adam step
+   of every window, through the launchers); the shape of every B1 and B2
+   launch (widths, streams, N) among those phases 3a and 3b hold, and
+   every B3 vector's size among phase 3c's; every earlier window's
+   parameters bitwise as its training left them, with no gradient; the
+   composite equal to window k inside slab k; every handoff target (and
+   wave_1d's velocity) equal to the previous window on its plane; the
+   composite rel-L2 finite and printed beside tpinn's TPU record; the
+   march.json record served on the card, /predict within 1e-6 of the
+   in-process composite, /residual's route and B1 count; convection_1d's
+   first two windows trained again with the same loss histories, bit for
+   bit.
 6. Timing (medians of synchronised runs): B1 inside the residual at the
    serving shapes; B1 alone against its plain version at the served
    262,144 points, the recipe's batch and L-BFGS grid (46,000, 202,500)
@@ -120,7 +146,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    call, host time a call, device time a launch in a queue of 100 behind
    a long kernel, and device time a launch replayed from a CUDA graph.
 
-Partial runs for work on kernels B1, B2 and B3 (not part of the smoke):
+Partial runs, for work on kernels B1, B2 and B3 and on one path (not part
+of the smoke):
 
     python3 chip_smoke.py --b1-only            # phases 2, 3a, B1's timing
     python3 chip_smoke.py --b1-compare DIR     # B1 here and in checkout DIR
@@ -128,8 +155,11 @@ Partial runs for work on kernels B1, B2 and B3 (not part of the smoke):
     python3 chip_smoke.py --b2-compare DIR     # B2 here and in checkout DIR
     python3 chip_smoke.py --b3-only            # phases 2, 3c, B3's timing
     python3 chip_smoke.py --b3-compare DIR     # B3 here and in checkout DIR
+    python3 chip_smoke.py --timing-compare DIR # residual, Adam step: DIR, here
     python3 chip_smoke.py --lbfgs-compare DIR  # phases 5b, 5c in DIR, here
     python3 chip_smoke.py --p3d-repeat DIR N   # 5c's training N times each
+    python3 chip_smoke.py --march-only         # phases 2 and 5e
+    python3 chip_smoke.py --determinism [DIR]  # warned ops of 5c's training
 
 The compares time the kernel at phase 6's shapes in DIR (say a git
 archive of the parent commit) and in this tree, one process each, in the
@@ -137,17 +167,24 @@ order DIR, here, here, DIR, on one card; B1's and B3's also print this
 tree's mean time over DIR's per shape or measure (B1: around the call,
 on the device and on the host; B3: those and a graph replay, beside
 torch._fused_adam_ in each run) and the largest difference between the
-two trees' outputs (B3: after 1,000 steps).  The last runs phases 5b and
-5c in DIR and then here, each printing per run an LBFGS_COUNTS line:
-Adam steps, L-BFGS iterates and evaluations per round, kernel launches.
+two trees' outputs (B3: after 1,000 steps).  --timing-compare times
+phase 6's residual through B1 and Adam step (kernel and plain engines)
+in the same order, and prints this tree's mean over DIR's per timing.
+--lbfgs-compare runs phases 5b and 5c in DIR and then here, each
+printing per run an LBFGS_COUNTS line: Adam steps, L-BFGS iterates and
+evaluations per round, kernel launches.
 --p3d-repeat runs phase 5c's training N times in DIR and N times here,
 two processes per tree at once on one card, and prints each run's rel-L2,
 B3 launchers' device steps and loss-history digest, the distinct outcomes
 per tree, and where a run's history parts from DIR's first run.
+--determinism runs phase 5c's training once (in DIR first, if given)
+under torch.use_deterministic_algorithms(True, warn_only=True) with
+CUBLAS_WORKSPACE_CONFIG=:4096:8 in that process only, and lists every
+operation PyTorch warned about with the line of Python that called it.
 
 The line before the last is a JSON object describing the kernels (each
-with its launches on the newest main path, phase 5c, and on every
-earlier path, its time, its plain version's, the card's bound for the
+with its launches on the newest main path, phase 5e's three marching
+recipes together, and on every path by name, its time, its plain version's, the card's bound for the
 same work and, where one PyTorch call computes the same function, that
 call's time; B1 and B2 with every timed shape and its plan under
 "shapes", B1's times around the call, with its device and host times
@@ -228,6 +265,16 @@ IDX7 = [(), (0,), (1,), (2,), (0, 0), (1, 1), (2, 2)]
 P3D_ADAM = 1000
 P3D_LBFGS = 1200
 P3D_REL_L2 = 1e-3
+# phase 5e: the three marching recipes at their widths, batches and
+# windows (tpinn_torch/problems/recipes.py; 4x64 tanh, 4,096 + 1,024
+# points and 512 per BC group a step; 8, 4 and 8 windows), each window's
+# budgets cut: (adam_epochs, lbfgs_epochs) against the recipe's 20,000 /
+# 6,000 (convection_1d, wave_1d) and 12,000 / 4,000 (allen_cahn) a
+# window; the cadences that scale with the budget cut as in phase 5c
+MARCH_CUTS = {"convection_1d": (300, 150), "wave_1d": (300, 150),
+              "allen_cahn": (100, 60)}
+MARCH_CADENCE = dict(tail_max=20, density_every=100, plateau_every=200)
+MARCH_TOL = 1e-6    # composite vs its windows, handoffs, served /predict
 QUEUED = 100        # back-to-back launches timed behind a long kernel
 # B3 past one grid of 132 SMs x 4 blocks x 256 threads: its threads loop
 LOOP_N = 140_001
@@ -328,6 +375,69 @@ def kernel_cases():
     ]
 
 
+def march_kernel_cases():
+    """(name, spec, fm, lb, ub, streams, N, backward) of phases 3a and 3b
+    for the marching path (phase 5e): the window nets of convection_1d and
+    wave_1d as their recipes build them, in the first and the last
+    window's slab, with the stream plan of their equation, at the batch a
+    step (n_col + n_band + n_adaptive + n_bd per BC group of the window:
+    B1 and B2) and at the density grid (grid^2 points: B1 only)."""
+    from tpinn_torch import problems
+    from tpinn_torch.core import net, pde, taylor
+    from tpinn_torch.core.march import window_problem
+
+    cases = []
+    for name in ("convection_1d", "wave_1d"):
+        problem, spec = problems.get_recipe(name)
+        windows = problems.RECIPES[name].march
+        st = spec.stages[0]
+        mspec = net.MLPSpec(depth=st.depth, width=st.width,
+                            act_first=st.act_first, act_hidden=st.act_hidden,
+                            scl=st.scl, epsil=st.epsil)
+        fm = net.feature_map_for(problem.feature_kinds,
+                                 pad_to=spec.pad_features)
+        ai = problem.coords.index("t")
+        compiled = pde.compile_pde(problem.equation, problem.coords)
+        streams = taylor.plan_streams(compiled.indices)
+        second = max(ix.count(ai) for ix in compiled.indices) == 2
+        edges = [problem.lb[ai] + (problem.ub[ai] - problem.lb[ai]) * k
+                 / windows for k in range(windows + 1)]
+        for k in (0, windows - 1):
+            sub = window_problem(problem, ai, edges[k], edges[k + 1], k,
+                                 (lambda z: z[:, :1]) if k else None,
+                                 handoff_velocity=second)
+            batch = (spec.n_col + spec.n_band + spec.n_adaptive
+                     + spec.n_bd * len(sub.bc_groups))
+            for n, what, backward in ((batch, "the batch", True),
+                                      (spec.grid ** 2, "the density grid",
+                                       False)):
+                cases.append((f"{name} {st.depth}x{st.width} {st.act_first}, "
+                              f"window {k + 1}, {what}", mspec, fm, sub.lb,
+                              sub.ub, streams, n, backward))
+    return cases
+
+
+def march_adam_sizes():
+    """The parameter counts of the three marching recipes' window nets:
+    the vectors B3 updates on the marching path (phase 3c holds them)."""
+    import torch
+
+    from tpinn_torch import problems
+    from tpinn_torch.core import net
+
+    sizes = set()
+    for name in ("convection_1d", "wave_1d", "allen_cahn"):
+        problem, spec = problems.get_recipe(name)
+        st = spec.stages[0]
+        fm = net.feature_map_for(problem.feature_kinds,
+                                 pad_to=spec.pad_features)
+        params = net.init_params(
+            torch.Generator().manual_seed(SEED),
+            net.MLPSpec(depth=st.depth, width=st.width), fm, "cpu")
+        sizes.add(sum(t.numel() for t in leaves_of(params)))
+    return sorted(sizes)
+
+
 def b1_mode_cases():
     """(name, spec, fm, lb, ub, streams, N) of phase 3a's nets whose
     weights B1 cannot keep resident: heat_2d's recipe net at its batch and
@@ -371,7 +481,9 @@ def phase_kernel_vs_plain(dev, gen):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     worst_abs = 0.0
     modes, chunked = set(), False
-    for name, spec, fm, lo, hi, streams, n in kernel_cases() + b1_mode_cases():
+    march = [case[:-1] for case in march_kernel_cases()]
+    for name, spec, fm, lo, hi, streams, n in (kernel_cases() + march
+                                               + b1_mode_cases()):
         dims = [fm.num_features] + [spec.width] * spec.depth + [1]
         plan = mlp_taylor.tiling(dims, len(streams), n, sms)
         c_smem = lib.tpinn_taylor2_fwd_smem(
@@ -464,6 +576,10 @@ def phase_b2(dev, gen):
                   net.MLPSpec(depth=3, width=256),
                   net.feature_map_for(("minmax", "periodic")), (0.1, 0.0),
                   (1.0, 2 * math.pi), IDX5))
+    # the marching windows at their batch (phase 5e's B2 launches)
+    cases += [(n, name, spec, fm, lo, hi, streams) for
+              name, spec, fm, lo, hi, streams, n, backward in
+              march_kernel_cases() if backward]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     lib = _build.load("taylor2_bwd")
     lib.tpinn_taylor2_bwd_smem.restype = ctypes.c_longlong
@@ -576,15 +692,15 @@ def phase_b3(dev):
     """B3 against its plain version over ADAM_STEPS steps, lr halved at
     the midpoint, through the Adam phase's launcher (FusedAdam, the step
     counted on the device) and through adam_update_flat side by side, at
-    n = ADAM_N and 1,001 (one element a thread) and LOOP_N (the threads
-    loop), on aligned vectors and on views one float off alignment; then
-    the graph check."""
+    n = ADAM_N, 1,001 (one element a thread), LOOP_N (the threads loop)
+    and the marching windows' parameter count, on aligned vectors and on
+    views one float off alignment; then the graph check."""
     import torch
 
     from tpinn_torch.kernels import adam
 
     worst_abs = 0.0
-    for n in (ADAM_N, 1_001, LOOP_N):
+    for n in (ADAM_N, 1_001, LOOP_N, *march_adam_sizes()):
         for offset in (0, 1):
             gen = torch.Generator(device=dev).manual_seed(SEED)
             p0 = torch.randn(n, generator=gen, device=dev)
@@ -1219,9 +1335,12 @@ def check_adam_route(what, built, launches, n_adam):
 def run_recipe_cut(name, dev, budgets, out_dir=SMOKE_DIR, **spec_kw):
     """get_recipe(name) with stage k's (adam_epochs, lbfgs_epochs) set to
     budgets[k] and the TrainSpec fields of ``spec_kw`` replaced, through
-    run_training on the card (artifacts under ``out_dir``/name) with the
-    launch counts reset before and read after.  Returns (problem, spec,
-    result, log lines, launches, Adam steps per stage, seconds)."""
+    run_training on the card, or for a marching recipe through
+    run_time_marching over its ``march`` windows (as tpinn's CLI
+    dispatches; ``budgets`` then cut every window), artifacts under
+    ``out_dir``/name, with the launch counts reset before and read after.
+    Returns (problem, spec, result, log lines, launches, Adam steps per
+    stage and window, seconds)."""
     import dataclasses
 
     import torch
@@ -1230,6 +1349,7 @@ def run_recipe_cut(name, dev, budgets, out_dir=SMOKE_DIR, **spec_kw):
     from tpinn_torch.core.train import run_training
 
     problem, spec = problems.get_recipe(name)
+    windows = problems.RECIPES[name].march
     check(len(budgets) == len(spec.stages), f"{name}: one budget per stage")
     spec = dataclasses.replace(
         spec, stages=tuple(dataclasses.replace(st, adam_epochs=a,
@@ -1242,8 +1362,17 @@ def run_recipe_cut(name, dev, budgets, out_dir=SMOKE_DIR, **spec_kw):
     reset_launches()
     t0 = time.perf_counter()
     with lbfgs_counts() as rounds, adam_launchers() as built:
-        res = run_training(problem, spec, output_dir=str(out),
-                           log_fn=lines.append, device=dev)
+        if windows:
+            # imported here: a checkout before marching (--p3d-repeat's
+            # parent) runs the other branch only
+            from tpinn_torch.core.march import run_time_marching
+
+            res = run_time_marching(problem, spec, windows,
+                                    output_dir=str(out),
+                                    log_fn=lines.append, device=dev)
+        else:
+            res = run_training(problem, spec, output_dir=str(out),
+                               log_fn=lines.append, device=dev)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_launches()
@@ -1251,15 +1380,17 @@ def run_recipe_cut(name, dev, budgets, out_dir=SMOKE_DIR, **spec_kw):
         print(f"  | {line}")
     n_adam = [int(m.group(1)) for m in
               (re.search(r"Adam done \((\d+) steps", ln) for ln in lines) if m]
-    check(len(n_adam) == len(budgets)
-          and all(n >= a for n, (a, _) in zip(n_adam, budgets)),
+    check(len(n_adam) == len(budgets) * max(1, windows)
+          and all(n >= a for n, (a, _) in zip(n_adam, budgets
+                                              * max(1, windows))),
           f"{name}: Adam phases logged {n_adam} for budgets {budgets}")
     check_adam_route(name, built, launches["adam"], n_adam)
     check(res.rel_l2 is not None and math.isfinite(res.rel_l2),
           f"{name}: rel-L2 {res.rel_l2}")
-    print(f"  run_training(get_recipe({name!r}), budgets {budgets}): "
-          f"{seconds:.1f} s, Adam steps {n_adam}, launches {launches}, "
-          f"rel-L2 {res.rel_l2:.4e}")
+    how = (f"run_time_marching(get_recipe({name!r}), {windows} windows"
+           if windows else f"run_training(get_recipe({name!r})")
+    print(f"  {how}, budgets {budgets}): {seconds:.1f} s, Adam steps "
+          f"{n_adam}, launches {launches}, rel-L2 {res.rel_l2:.4e}")
     # where the kernel engine takes the loss, every loss evaluation
     # launches B1 and B2 once: their counts follow the L-BFGS evaluations
     print("LBFGS_COUNTS " + json.dumps({
@@ -1498,6 +1629,270 @@ def phase_other_paths(dev, card):
     print(f"  kdv_1d: route generic jvp (order 3), loss {h[0, 0]:.4e} -> "
           f"{h[-1, 0]:.4e}, rel-L2 {res.rel_l2:.4e}")
     by_path["kdv_1d"] = launches
+    return by_path
+
+
+@contextlib.contextmanager
+def window_snapshots():
+    """Records a copy of every march window's parameters as its
+    run_training returns them: yields the list (one list of leaves per
+    window)."""
+    from tpinn_torch.core import march, optim
+
+    taken = []
+    inner = march.run_training
+
+    def recorded(*args, **kwargs):
+        res = inner(*args, **kwargs)
+        taken.append([x.clone() for x in
+                      optim.tree_leaves(res.stages[-1].params)])
+        return res
+
+    march.run_training = recorded
+    try:
+        yield taken
+    finally:
+        march.run_training = inner
+
+
+@contextlib.contextmanager
+def kernel_shapes():
+    """Records the shape of every B1 and B2 launch made inside: yields a
+    Counter of (kernel, layer widths, streams, N)."""
+    import collections
+
+    from tpinn_torch.kernels import mlp_taylor, taylor_vjp
+
+    seen = collections.Counter()
+    fwd, bwd = mlp_taylor._launch, taylor_vjp._launch
+
+    def b1(params, z, spec, fm, lb, ub, streams, dims):
+        seen["taylor2_fwd", tuple(dims), tuple(map(tuple, streams)),
+             z.shape[0]] += 1
+        return fwd(params, z, spec, fm, lb, ub, streams, dims)
+
+    def b2(layers, z, ct, spec, fm, lb, ub, streams):
+        dims = (fm.num_features, *(int(x["w"].shape[1]) for x in layers))
+        seen["taylor2_bwd", dims, tuple(map(tuple, streams)),
+             z.shape[0]] += 1
+        return bwd(layers, z, ct, spec, fm, lb, ub, streams)
+
+    mlp_taylor._launch, taylor_vjp._launch = b1, b2
+    try:
+        yield seen
+    finally:
+        mlp_taylor._launch, taylor_vjp._launch = fwd, bwd
+
+
+def march_held_shapes() -> set:
+    """The (kernel, layer widths, streams, N) that phases 3a and 3b hold
+    against the plain versions for the marching path."""
+    held = set()
+    for _, spec, fm, _, _, streams, n, backward in march_kernel_cases():
+        key = ((fm.num_features, *[spec.width] * spec.depth, 1),
+               tuple(map(tuple, streams)), n)
+        held.add(("taylor2_fwd", *key))
+        if backward:
+            held.add(("taylor2_bwd", *key))
+    return held
+
+
+def history_digest(h) -> str:
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha1(np.ascontiguousarray(h).tobytes()).hexdigest()
+
+
+def check_march(name, problem, res, dev, card):
+    """The composite against its windows inside their slabs, and every
+    handoff target against the previous window on its plane (value, and
+    for second order in t the velocity)."""
+    import numpy as np
+    import torch
+
+    from tpinn_torch.core.march import axis_derivative
+
+    ai, edges = res.axis_index, res.edges
+    xi = 1 - ai
+    gen = torch.Generator().manual_seed(SEED)
+    worst_c = worst_h = 0.0
+    for k, win in enumerate(res.windows):
+        # inside slab k, and on its lower edge (an inner edge belongs to
+        # the later window)
+        z = torch.rand((200, 2), generator=gen, dtype=torch.float64)
+        z[:, xi] = problem.lb[xi] + z[:, xi] * (problem.ub[xi]
+                                                - problem.lb[xi])
+        z[:, ai] = edges[k] + z[:, ai] * (edges[k + 1] - edges[k])
+        z[:8, ai] = edges[k]
+        z = z.to(torch.float32)
+        if k + 1 < len(res.windows):
+            z[:, ai].clamp_(max=np.nextafter(np.float32(edges[k + 1]),
+                                             np.float32(0.0)))
+        z = z.to(dev)
+        with torch.no_grad():
+            diff = float((res.predict(z) - win.predict(z)).abs().max())
+        worst_c = max(worst_c, diff)
+        check(diff <= MARCH_TOL,
+              f"{name}: the composite differs from window {k + 1} inside "
+              f"its slab by {diff}")
+        if k == 0:
+            continue
+        groups = win.problem.bc_groups
+        velocity = groups[-1].operator is not None
+        plane = z.clone()
+        plane[:, ai] = float(edges[k])
+        prev = res.windows[k - 1].predict
+        pairs = [(groups[-1 - velocity], prev)]
+        if velocity:
+            pairs.append((groups[-1], axis_derivative(prev, ai)))
+        for grp, want in pairs:
+            with torch.no_grad():
+                diff = float((grp.target(plane) - want(plane)).abs().max())
+            worst_h = max(worst_h, diff)
+            check(diff <= MARCH_TOL,
+                  f"{name} window {k + 1}: handoff {grp.value_expr!r} "
+                  f"differs from window {k} on the plane by {diff}")
+    print(f"  {name}: composite equals window k inside slab k (max abs "
+          f"difference {worst_c:.2e}); every handoff target equals the "
+          f"previous window on its plane ({worst_h:.2e}), on {card}")
+
+
+def phase_march(dev, card):
+    """The three marching recipes through run_time_marching at their full
+    width and batch, each window's budgets cut (MARCH_CUTS): launch counts
+    reset before each and read after (B1 and B2 in convection_1d and
+    wave_1d, B1 no time in allen_cahn, B3 once per Adam step of every
+    window, through the launchers), every B1 and B2 launch at a shape that
+    phases 3a and 3b hold and every B3 launcher on a vector of a size that
+    phase 3c holds, earlier windows bitwise unchanged with
+    no gradient, the composite against its windows and the handoffs
+    against the previous windows, the composite rel-L2 beside tpinn's TPU
+    record, march.json served on the card (/predict against the composite,
+    /residual's route), and convection_1d's first two windows run again
+    with the same loss histories.  Returns {recipe: launches}."""
+    import numpy as np
+    import torch
+
+    from tpinn_torch import problems
+    from tpinn_torch.app.serve import PINNServer
+    from tpinn_torch.core import optim
+    from tpinn_torch.core.march import window_problem
+    from tpinn_torch.core.train import run_training
+    from tpinn_torch.kernels import mlp_taylor
+
+    by_path = {}
+    held = march_held_shapes()
+    for name, budget in MARCH_CUTS.items():
+        rec = problems.RECIPES[name]
+        problem, spec = problems.get_recipe(name)
+        check(rec.march > 0 and not rec.hard_bc and len(spec.stages) == 1
+              and (spec.stages[0].depth, spec.stages[0].width) == (4, 64)
+              and (spec.n_col, spec.n_band, spec.n_adaptive, spec.n_bd)
+              == (4096, 0, 1024, 512),
+              f"the {name} recipe is not the one phase 5e expects")
+        with window_snapshots() as taken, kernel_shapes() as shapes, \
+                adam_launchers() as vectors:
+            problem, spec, res, lines, launches, n_adam, seconds = \
+                run_recipe_cut(name, dev, [budget], out_dir=SMOKE_DIR /
+                               "march", **MARCH_CADENCE)
+        windows = rec.march
+        # every launch of the path at a shape phases 3a-3c hold against the
+        # plain versions
+        for k in ("taylor2_fwd", "taylor2_bwd"):
+            check(sum(c for key, c in shapes.items() if key[0] == k)
+                  == launches[k], f"{name}: {k} shapes recorded for "
+                                  f"{launches[k]} launches")
+        stray = sorted(set(shapes) - held)
+        check(not stray, f"{name}: B1/B2 launched at shapes phases 3a and "
+                         f"3b do not hold: {stray}")
+        for (k, dims, streams, n), c in sorted(shapes.items()):
+            print(f"  {name}: {k} at N={n}, widths {list(dims)}, streams "
+                  f"{list(streams)}: {c} launches (held in phase "
+                  f"{'3a' if k == 'taylor2_fwd' else '3b'})")
+        sizes = sorted({x.p.numel() for x in vectors})
+        check(len(vectors) == len(n_adam)
+              and set(sizes) <= set(march_adam_sizes()),
+              f"{name}: {len(vectors)} B3 launchers on vectors of {sizes}")
+        print(f"  {name}: B3 on {len(vectors)} vectors of {sizes} "
+              f"parameters (held in phase 3c)")
+        out = SMOKE_DIR / "march" / name
+        check(len(res.windows) == windows, f"{name}: {len(res.windows)} "
+                                           f"windows for {windows}")
+        kernel_path = name != "allen_cahn"
+        for k in ("taylor2_fwd", "taylor2_bwd"):
+            check((launches[k] >= sum(n_adam)) if kernel_path
+                  else launches[k] == 0,
+                  f"{name}: {k} launched {launches[k]} times over "
+                  f"{sum(n_adam)} Adam steps")
+        # earlier windows end as their own training left them
+        for k, (win, snap) in enumerate(zip(res.windows, taken)):
+            leaves = optim.tree_leaves(win.stages[-1].params)
+            check(len(leaves) == len(snap)
+                  and all(x.grad is None and torch.equal(x, y)
+                          for x, y in zip(leaves, snap)),
+                  f"{name}: window {k + 1}'s parameters changed or hold a "
+                  f"gradient after later windows trained")
+        print(f"  {name}: {windows} windows of {budget[0]} / {budget[1]}: "
+              f"{seconds:.1f} s, Adam steps {sum(n_adam)}, launches "
+              f"{launches}; composite rel-L2 {res.rel_l2:.4e} (TPU record "
+              f"{rec.run_tag}, {rec.march} windows at the full budget: "
+              f"{rec.expected_rel_l2:g}), windows "
+              + ", ".join(f"{w.rel_l2:.3e}" for w in res.windows)
+              + f"; route {'kernels B1 + B2' if kernel_path else 'generic jvp'}"
+              f", on {card}")
+        check_march(name, problem, res, dev, card)
+
+        # the record served on the card
+        record = json.loads((out / "march.json").read_text())
+        check(record["windows"] == [f"window_{k + 1}/params_stage_1.npz"
+                                    for k in range(windows)]
+              and record["rel_l2"] == res.rel_l2,
+              f"{name}: march.json {record}")
+        srv = PINNServer(str(out), name, device=dev)
+        rng = np.random.default_rng(SEED)
+        pts = np.stack([rng.uniform(problem.lb[0], problem.ub[0], 1_000),
+                        rng.uniform(problem.lb[1], problem.ub[1], 1_000)],
+                       axis=1).astype(np.float32)
+        pts[:windows + 1, 1] = res.edges
+        with http_server(srv) as base:
+            u = np.asarray(post(base, "/predict", pts.tolist())["u"])
+            before = mlp_taylor.LAUNCHES
+            f = np.asarray(post(base, "/residual", pts.tolist())["f"])
+            grew = mlp_taylor.LAUNCHES - before
+        with torch.no_grad():
+            want = res.predict(torch.from_numpy(pts).to(dev))[:, 0]
+        err = float(np.abs(u - want.cpu().numpy()).max())
+        check(u.shape == f.shape == (1_000,) and bool(np.isfinite(u).all()
+                                                      and np.isfinite(f).all()),
+              f"{name}: served answers: shape or values")
+        check(err <= MARCH_TOL,
+              f"{name}: served /predict vs the composite: max err {err}")
+        print(f"  {name}: march.json served on the card: /predict equals "
+              f"the in-process composite at 1,000 points, the edges among "
+              f"them (max abs difference {err:.2e}); /residual through the "
+              f"composite: route {'kernel B1' if grew else 'generic jvp'}, "
+              f"taylor2_fwd launches +{grew}")
+        by_path[name] = launches
+
+        if name == "convection_1d":
+            # the first two windows again: the same loss histories, bit for
+            # bit (the density-weighted draws in the L-BFGS rounds)
+            ai, edges = res.axis_index, res.edges
+            prev = None
+            for k in range(2):
+                sub = window_problem(problem, ai, edges[k], edges[k + 1], k,
+                                     prev)
+                again = run_training(sub, spec, device=dev)
+                a, b = (history_digest(r.history)
+                        for r in (res.windows[k], again))
+                check(a == b, f"convection_1d window {k + 1} run twice: "
+                              f"loss-history digests {a[:12]} and {b[:12]}")
+                print(f"  convection_1d window {k + 1} run twice: one "
+                      f"loss-history digest {a[:12]} "
+                      f"({len(again.history)} rows)")
+                prev = again.predict
     return by_path
 
 
@@ -1967,6 +2362,35 @@ def b3_compare(parent: str) -> None:
     print("B3_COMPARE " + json.dumps({"ms": ms, "max_diff": diff}))
 
 
+def timing_compare(parent: str) -> None:
+    """Phase 6's end-to-end timings in another checkout (``parent``) and
+    in this tree, in the order parent, this, this, parent, one process
+    each: the residual of the served 6x80 checkpoint through B1
+    (phase_timing) and the Adam step with the kernel and the plain
+    engines (adam_step_times); one TIMING JSON line per run, then per
+    timing this tree's mean over the parent's."""
+    here, there = str(ROOT), str(Path(parent).resolve())
+    outs = in_trees((there, here, here, there), [
+        "from tpinn_torch.app.serve import PINNServer",
+        "from tpinn_torch.kernels import _build",
+        "_build.load_all(s.KERNELS)",
+        "gen = torch.Generator().manual_seed(s.SEED)",
+        "name, path = s.write_checkpoints(gen)[0]",
+        "srv = PINNServer(str(path), 'annulus_laplace', device=dev)",
+        "t = s.phase_timing(dev, gen, [(name, srv)])",
+        "t.update(s.adam_step_times(dev))",
+        "print('TIMING ' + json.dumps({'tree': tree, 'ms': t}))"])
+    ms = [json.loads(line.split(" ", 1)[1])["ms"] for out in outs
+          for line in out.splitlines() if line.startswith("TIMING ")]
+    for key in ms[0]:
+        for i, engine in enumerate(("kernel", "plain")):
+            t = [m[key][i] for m in ms]
+            print(f"  {key}, {engine}: this tree {t[1]:.3f}, {t[2]:.3f} ms, "
+                  f"the parent {t[0]:.3f}, {t[3]:.3f} ms: "
+                  f"{(t[1] + t[2]) / (t[0] + t[3]):.3f}x")
+    print("TIMING_COMPARE " + json.dumps({"ms": ms}))
+
+
 def lbfgs_compare(parent: str) -> None:
     """Phases 5b and 5c in another checkout (``parent``) and in this tree,
     in that order: their LBFGS_COUNTS lines give the kernels' launches
@@ -1986,8 +2410,6 @@ def p3d_runs(dev, runs: int, tag: str) -> None:
     a block whose slot fell behind, or a flagged slot, raises, and the
     run reports the error) and the SHA-1 of the loss history (a row per
     Adam step and per L-BFGS record), which is kept under build/."""
-    import hashlib
-
     import numpy as np
 
     saved = ROOT / "build" / "p3d_repeat"
@@ -2005,7 +2427,7 @@ def p3d_runs(dev, runs: int, tag: str) -> None:
             row.update(rel_l2=res.rel_l2, adam_steps=n_adam,
                        launches=launches, seconds=seconds,
                        adam_t=None if built is None else [x.t for x in built],
-                       history_sha1=hashlib.sha1(hist.tobytes()).hexdigest())
+                       history_sha1=history_digest(hist))
         except Exception as e:  # reported per run; the others go on
             row["error"] = f"{type(e).__name__}: {e}"
         print("P3D_RUN " + json.dumps(row), flush=True)
@@ -2199,6 +2621,16 @@ def b3_times(dev, save=None) -> dict:
 def phase_timing_train(dev):
     """The Adam step, kernel engine (B1 + B2 + B3) against the plain
     engine (plain B1, autograd, plain Adam), and B2 and B3 alone."""
+    out = adam_step_times(dev)
+    out.update(b2_times(dev))
+    out["adam"] = b3_times(dev)
+    return out
+
+
+def adam_step_times(dev):
+    """The Adam step with the kernel engine (B1 + B2 + B3) against the
+    plain engine (plain B1, autograd, plain Adam) at the recipe's shape,
+    bench.py's and poisson_3d's: {"step_<shape>": (kernel, plain) ms}."""
     import torch
 
     from tpinn_torch import problems
@@ -2232,10 +2664,6 @@ def phase_timing_train(dev):
               f"kernel engine {ms['kernel']:.3f} ms, plain engine "
               f"{ms['plain']:.3f} ms (synchronised host clock, median of "
               f"{TIMED_RUNS}, alternating)")
-
-    out.update(b2_times(dev))
-
-    out["adam"] = b3_times(dev)
     return out
 
 
@@ -2359,6 +2787,51 @@ def b3_only() -> None:
     b3_times(dev)
 
 
+def march_only() -> None:
+    """Phases 1, 2 and 5e alone: the marching path on the card."""
+    import torch
+
+    card = card_line()
+    print(f"  card: {card}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda", 0)
+    phase("2. build")
+    phase_build()
+    phase("5e. marching (the time-marching slice's path)")
+    phase_march(dev, card)
+
+
+def determinism(parent=None) -> None:
+    """Phase 5c's training once (in ``parent`` first, if given, then in
+    this tree), each run in its own process under
+    torch.use_deterministic_algorithms(True, warn_only=True) with
+    CUBLAS_WORKSPACE_CONFIG=:4096:8 set in that process before cuBLAS
+    starts; prints every operation PyTorch warned about (its message, the
+    line of Python that called it, how often) and the run's rel-L2."""
+    trees = ([str(Path(parent).resolve())] if parent else []) + [str(ROOT)]
+    in_trees(trees, [
+        "import collections, os, warnings",
+        "os.environ['CUBLAS_WORKSPACE_CONFIG'] = ':4096:8'",
+        "from tpinn_torch.kernels import _build",
+        "_build.load_all(s.KERNELS)",
+        "torch.use_deterministic_algorithms(True, warn_only=True)",
+        "with warnings.catch_warnings(record=True) as caught:",
+        "    warnings.simplefilter('always')",
+        "    res = s.run_recipe_cut('poisson_3d', dev, [(s.P3D_ADAM, "
+        "s.P3D_LBFGS)], out_dir=s.SMOKE_DIR / 'determinism', tail_max=50, "
+        "density_every=100, plateau_every=200)[2]",
+        "ops = collections.Counter((str(w.message).splitlines()[0], "
+        "f'{w.filename}:{w.lineno}') for w in caught "
+        "if 'deterministic' in str(w.message))",
+        "for (msg, where), n in ops.most_common():",
+        "    print(f'  warned {n} times at {where}: {msg}')",
+        "print('DETERMINISM ' + json.dumps({'tree': tree, "
+        "'rel_l2': res.rel_l2, 'warned': [{'op': m, 'where': w, 'count': n} "
+        "for (m, w), n in ops.most_common()]}))"])
+
+
 def main() -> int:
     import torch
 
@@ -2405,10 +2878,17 @@ def main() -> int:
     recipe_launches = phase_recipe(dev, card)
 
     phase("5c. poisson_3d (the 3-D training path)")
-    launches = phase_poisson3d(dev, card)
+    p3d_launches = phase_poisson3d(dev, card)
 
     phase("5d. the other recipes' paths")
     other_launches = phase_other_paths(dev, card)
+
+    phase("5e. marching (the time-marching slice's path)")
+    march_launches = phase_march(dev, card)
+    launches = {k: sum(v[k] for v in march_launches.values())
+                for k in KERNELS}
+    for k in KERNELS:
+        check(launches[k] > 0, f"{k} launched no time on the marching path")
 
     phase("6. timing")
     times = phase_timing(dev, gen, servers)
@@ -2467,13 +2947,15 @@ def main() -> int:
                                  "taylor2_fwd" else 0,
                                  "train": train_launches[src],
                                  "recipe": recipe_launches[src],
-                                 "poisson_3d": launches[src],
+                                 "poisson_3d": p3d_launches[src],
                                  **{k: v[src] for k, v in
-                                    other_launches.items()}}, **extra})
+                                    other_launches.items()},
+                                 **{f"march_{k}": v[src] for k, v in
+                                    march_launches.items()}}, **extra})
         k = kernels[-1]
         print(f"  {name}: {k['ms']:.4f} ms, bound {k['bound_ms']:.5f} ms by "
               f"{k['bound_by']} ({100 * k['bound_ms'] / k['ms']:.1f}% of the "
-              f"time), launches on the poisson_3d path {launches[src]}, on "
+              f"time), launches on the marching path {launches[src]}, on "
               f"{card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -2495,9 +2977,15 @@ if __name__ == "__main__":
         b3_only()
     elif sys.argv[1:2] == ["--b3-compare"] and len(sys.argv) == 3:
         b3_compare(sys.argv[2])
+    elif sys.argv[1:2] == ["--timing-compare"] and len(sys.argv) == 3:
+        timing_compare(sys.argv[2])
     elif sys.argv[1:2] == ["--lbfgs-compare"] and len(sys.argv) == 3:
         lbfgs_compare(sys.argv[2])
     elif sys.argv[1:2] == ["--p3d-repeat"] and len(sys.argv) == 4:
         p3d_repeat(sys.argv[2], int(sys.argv[3]))
+    elif sys.argv[1:2] == ["--march-only"]:
+        march_only()
+    elif sys.argv[1:2] == ["--determinism"] and len(sys.argv) <= 3:
+        determinism(sys.argv[2] if len(sys.argv) == 3 else None)
     else:
         sys.exit(main())

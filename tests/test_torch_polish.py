@@ -764,8 +764,8 @@ def test_recipes_equal_tpinn(name):
     for field in ("name", "equation", "coords", "lb", "ub", "feature_kinds",
                   "source"):
         assert getattr(tp, field) == getattr(jp, field), field
-    with pytest.raises(KeyError, match="item 13a"):
-        tproblems.get_recipe("allen_cahn")
+    ac, _ = tproblems.get_recipe("allen_cahn")   # ported with marching
+    assert ac.feature_kinds == ("periodic_fit", "minmax")
     with pytest.raises(KeyError, match="no recipe"):
         tproblems.get_recipe("no_such_problem")
 

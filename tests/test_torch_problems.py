@@ -71,19 +71,18 @@ def _group_points(grp, n, seed):
 
 
 def test_registry_is_tpinns_without_allen_cahn():
-    assert len(tproblems.PRESETS) == 12 and len(tproblems.RECIPES) == 12
-    assert tproblems._LATER == ("allen_cahn",)
-    assert set(tproblems.PRESETS) == set(jproblems.PRESETS) - {"allen_cahn"}
-    assert set(tproblems.RECIPES) == set(JRECIPES) - {"allen_cahn"}
-    assert list(tproblems.PRESETS) == [n for n in jproblems.PRESETS
-                                       if n != "allen_cahn"]
+    """The registry is tpinn's, in tpinn's order: every preset, every
+    recipe and every hard-BC row, ``allen_cahn`` included since it came
+    with time marching (the name is from when it was the one left out)."""
+    assert len(tproblems.PRESETS) == 13 and len(tproblems.RECIPES) == 13
+    assert list(tproblems.PRESETS) == list(jproblems.PRESETS)
+    assert list(tproblems.RECIPES) == list(JRECIPES)
     for getter in (tproblems.get_problem, tproblems.get_recipe):
-        with pytest.raises(KeyError, match="item 13a"):
-            getter("allen_cahn")
+        assert getter("allen_cahn") is not None
         with pytest.raises(KeyError, match="no_such"):
             getter("no_such_problem")
-    assert set(tproblems.HARD_BC) == set(jproblems.HARD_BC) - {"allen_cahn"}
-    assert len(NEW) == 10
+    assert list(tproblems.HARD_BC) == list(jproblems.HARD_BC)
+    assert len(NEW) == 11
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -223,6 +222,71 @@ def test_burgers_shock_oracle_equals_tpinn():
     assert custom.equation == jproblems.burgers_shock(nu=0.05).equation
 
 
+@pytest.mark.parametrize("which", ["allen_cahn", "nls"])
+def test_oracles_equal_tpinn(which):
+    """problems.oracles is a copy of tpinn's: the same solves at a reduced
+    grid and step count give the same bits, and so does the periodic
+    interpolant on points past the seam and past the last frame."""
+    from tpinn.problems import oracles as joracles
+    from tpinn_torch.problems import oracles as toracles
+
+    if which == "allen_cahn":
+        kw = dict(n=64, dt=2e-3, t_final=0.1, frame_every=5)
+        run = lambda m: m.allen_cahn_solution(**kw)
+        period = 2.0
+    else:
+        kw = dict(n=128, nsteps=200, t_final=0.2, frame_every=20)
+        run = lambda m: m.nls_solution(**kw)
+        period = 10.0
+    got, want = run(toracles), run(joracles)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    t, x, U = got
+    assert U.shape == (len(t), len(x)) and np.isfinite(U).all()
+    U = U.real
+    rng = np.random.default_rng(11)
+    z = np.stack([rng.uniform(x[0] - period, x[0] + 2 * period, 200),
+                  rng.uniform(t[0], 1.2 * t[-1], 200)], axis=1)
+    np.testing.assert_array_equal(
+        toracles.grid_interpolant(t, x, U, period)(z),
+        joracles.grid_interpolant(t, x, U, period)(z))
+
+
+def test_allen_cahn_preset_equals_tpinn():
+    """The preset's oracle against tpinn's at sample points to 1e-12 in
+    float64 (the oracle runs on the host in float64 in both), its IC
+    against the closed form to 1e-12, a
+    float32 tensor in giving a float32 tensor out; the oracle's IC row is
+    the IC."""
+    jp, tp = jproblems.get_problem("allen_cahn"), tproblems.allen_cahn()
+    assert tp.feature_kinds == ("periodic_fit", "minmax") == jp.feature_kinds
+    assert tp.hard_bc is None and tp.source is None and tp.eval_mask is None
+    rng = np.random.default_rng(12)
+    z = np.concatenate([rng.uniform((-1.0, 0.0), (1.0, 1.0), (300, 2)),
+                        [[-1.0, 0.0], [1.0, 1.0], [0.3, 0.0]]])
+    got = tp.exact(torch.from_numpy(z))
+    assert got.dtype == torch.float64 and tuple(got.shape) == (303, 1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jp.exact(z)),
+                               rtol=0, atol=1e-12)
+    # the IC in float64 against its closed form (tpinn's compiles to
+    # float32 without x64: test_problem_spec_equals_tpinn holds it there)
+    ic = tp.bc_groups[0]
+    x0 = np.stack([np.linspace(-1, 1, 41), np.zeros(41)], axis=1)
+    np.testing.assert_allclose(
+        ic.target(torch.from_numpy(x0)).numpy()[:, 0],
+        x0[:, 0] ** 2 * np.cos(np.pi * x0[:, 0]), rtol=0, atol=1e-12)
+    assert ic.value_expr == jp.bc_groups[0].value_expr
+    # away from the seam, where the cubic interpolant meets the kink of
+    # the periodic extension
+    xi = x0[4:-4]
+    np.testing.assert_allclose(tp.exact(torch.from_numpy(xi)).numpy()[:, 0],
+                               xi[:, 0] ** 2 * np.cos(np.pi * xi[:, 0]),
+                               atol=1e-4)
+    z32 = torch.from_numpy(z.astype(np.float32))
+    assert tp.exact(z32).dtype == torch.float32
+
+
 @pytest.mark.parametrize("name", NAMES)
 def test_recipe_equals_tpinn(name):
     """TrainSpec and Recipe field for field, and what get_recipe returns."""
@@ -249,7 +313,8 @@ def test_recipe_equals_tpinn(name):
                   "source"):
         assert getattr(tp, field) == getattr(jp, field), field
     if trec.march:
-        assert not trec.hard_bc and name in ("convection_1d", "wave_1d")
+        assert not trec.hard_bc and name in ("convection_1d", "allen_cahn",
+                                             "wave_1d")
 
 
 # ---------------------------------------------------------------------------

@@ -302,6 +302,40 @@ def test_cell_index_never_lands_on_a_zero_mass_cell(where):
     assert float(counts[f > 0].std() / counts[f > 0].mean()) < 1.0
 
 
+@pytest.mark.parametrize("n", [1, 1023, 1024, 1025, 27_000, 29_791,
+                               100_003])
+@pytest.mark.parametrize("plateaus", [False, True])
+def test_fixed_order_cdf_equals_cumsum(n, plateaus):
+    """The cumulative mass of the draws (fixed order on the host) against
+    torch.cumsum on the CPU and against float64 np.cumsum rounded to
+    float32, bitwise, at lengths from one to past a hundred tiles of a
+    device scan's 1,024, multiples of it and not, with runs of zero-mass
+    cells at the front, inside and at the back; in float64 the float64
+    sums themselves.  The result has f's dtype and device."""
+    rng = np.random.default_rng(n)
+    f = rng.uniform(0.0, 3.0, n).astype(np.float32)
+    if plateaus:
+        f[: n // 7] = 0.0
+        f[n // 3: n // 3 + n // 5] = 0.0
+        f[n - n // 9:] = 0.0
+    got = sample.fixed_order_cdf(torch.from_numpy(f))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (n + 1,)
+    assert float(got[0]) == 0.0 and got.device.type == "cpu"
+    np.testing.assert_array_equal(
+        got[1:].numpy(), torch.cumsum(torch.from_numpy(f), 0).numpy())
+    np.testing.assert_array_equal(
+        got[1:].numpy(), np.cumsum(f.astype(np.float64)).astype(np.float32))
+    assert bool((got[1:] >= got[:-1]).all())
+    # a zero-mass cell leaves the sum exactly where it was
+    zero = np.nonzero(f == 0.0)[0]
+    np.testing.assert_array_equal(got[zero + 1].numpy(), got[zero].numpy())
+    f64 = torch.from_numpy(f.astype(np.float64) / 3.0)
+    got64 = sample.fixed_order_cdf(f64)
+    assert got64.dtype == torch.float64
+    np.testing.assert_array_equal(got64[1:].numpy(),
+                                  np.cumsum(f64.numpy()))
+
+
 class _TopGen:
     """Stands in for a generator whose every uniform draw is the largest
     float32 below 1 (torch.rand is patched to honour it)."""

@@ -180,11 +180,12 @@ GALERKIN = {"kind": "galerkin", "lb": [0.1, 0.0], "ub": [1.0, TWO_PI],
             "coeffs": [3.1e-3, -1.7e-3, 0.9e-3], "linearized": False}
 
 
-@pytest.mark.parametrize("what", ["deflation", "ensemble", "march", "system",
+@pytest.mark.parametrize("what", ["deflation", "ensemble", "system",
                                   "inverse", "patch"])
 def test_unported_checkpoints_refused(tmp_path, what):
-    """Ensemble, march, system, inverse and patch checkpoints are refused;
-    a deflation-corrected one is served, with the correction subtracted."""
+    """Ensemble, system, inverse and patch checkpoints are refused; a
+    deflation-corrected one is served, with the correction subtracted
+    (march records are served: test_march_record_served_by_both_packages)."""
     fm = jnet.feature_map_for(KINDS)
     s = jnet.MLPSpec(depth=2, width=8)
     p = jnet.init_params(jax.random.PRNGKey(0), s, fm)
@@ -199,7 +200,7 @@ def test_unported_checkpoints_refused(tmp_path, what):
     }.get(what, {}))
     jckpt.save_pytree(path, p, meta=meta)
     target = path
-    if what in ("ensemble", "march"):
+    if what == "ensemble":
         (tmp_path / f"{what}.json").write_text("{}")
         target = tmp_path
     if what == "deflation":
@@ -291,6 +292,94 @@ def test_server_computes_a_correction_at_load(tmp_path):
                             - np.sin(np.pi * np.asarray(pts)[:, 0])).max())
 
 
+def _heat_window_meta(spec, lb, ub, name):
+    """The meta run_training writes for a soft-BC heat_2d window."""
+    return {"stage": 1, "scl": 1.0, "epsil": 1.0, "problem": name,
+            "chain": [jnet.spec_to_dict(spec)],
+            "feature_kinds": ["minmax", "minmax"], "lb": list(lb),
+            "ub": list(ub), "hard_bc": None, "coords": ["x", "t"],
+            "pad_features": 3, "deflation": None}
+
+
+def _tpinn_march_record(tmp_path):
+    """Three heat_2d window checkpoints saved by tpinn from initial
+    parameters, and a hand-written march.json over them."""
+    edges = [0.0, 0.25, 0.6, 1.0]
+    fm = jnet.feature_map_for(["minmax", "minmax"], pad_to=3)
+    windows = []
+    for k in range(3):
+        s = jnet.MLPSpec(depth=2, width=12)
+        p = jnet.init_params(jax.random.PRNGKey(20 + k), s, fm)
+        rel = f"window_{k + 1}/params_stage_1.npz"
+        (tmp_path / rel).parent.mkdir()
+        jckpt.save_pytree(tmp_path / rel, p, meta=_heat_window_meta(
+            s, (0.0, edges[k]), (1.0, edges[k + 1]), f"heat_2d_w{k + 1}"))
+        windows.append(rel)
+    (tmp_path / "march.json").write_text(json.dumps({
+        "problem": "heat_2d", "axis": "t", "axis_index": 1, "edges": edges,
+        "windows": windows, "rel_l2": None, "rel_l2_windows": [None] * 3,
+        "fell_back": False}))
+    return edges
+
+
+def _port_march_record(tmp_path):
+    """A 2-window heat_2d march run by the port on the CPU."""
+    from tpinn_torch.core.march import run_time_marching
+    from tpinn_torch.core.train import StageSpec, TrainSpec
+
+    spec = TrainSpec(n_col=200, n_band=0, n_adaptive=50, n_bd=40,
+                     testing_size=(21, 21), grid=21, tail_max=0,
+                     pad_features=3,
+                     stages=(StageSpec(depth=2, width=12, scl=1.0, epsil=1.0,
+                                       adam_epochs=60, lbfgs_epochs=30),))
+    torch.set_num_threads(1)
+    res = run_time_marching(tproblems.heat_2d(), spec, 2,
+                            output_dir=str(tmp_path), device="cpu")
+    return [float(e) for e in res.edges]
+
+
+@pytest.mark.parametrize("writer", ["tpinn", "tpinn_torch"])
+def test_march_record_served_by_both_packages(tmp_path, writer):
+    """A march.json served by both packages' PINNServer, as the directory
+    and as the record's own path: /predict within 1e-6 at points in every
+    slab and on every edge, /residual at rtol 1e-3, atol 1e-4, and the
+    port's /predict is the composite of its window servers."""
+    from tpinn.app.serve import PINNServer as JaxServer
+    from tpinn_torch.core.march import make_march_predictor
+
+    before = torch.get_num_threads()
+    try:
+        edges = (_tpinn_march_record if writer == "tpinn"
+                 else _port_march_record)(tmp_path)
+        jsrv = JaxServer(str(tmp_path), "heat_2d")
+        tsrv = tserve.PINNServer(str(tmp_path), "heat_2d", device="cpu")
+        trec = tserve.PINNServer(str(tmp_path / "march.json"), "heat_2d",
+                                 device="cpu")
+        rng = np.random.default_rng(30)
+        pts = np.concatenate([
+            rng.uniform((0.0, 0.0), (1.0, 1.0), (100, 2)),
+            [[0.3, e] for e in edges] + [[0.8, e] for e in edges]]
+        ).astype(np.float32)
+        u_t = tsrv.predict(pts.tolist())
+        np.testing.assert_allclose(u_t, jsrv.predict(pts.tolist()), rtol=0,
+                                   atol=1e-6)
+        assert trec.predict(pts.tolist()) == u_t
+        np.testing.assert_allclose(tsrv.residual(pts.tolist()),
+                                   jsrv.residual(pts.tolist()), rtol=1e-3,
+                                   atol=1e-4)
+        subs = [tserve.PINNServer(str(tmp_path / w), "heat_2d", device="cpu")
+                for w in json.loads((tmp_path / "march.json").read_text())
+                ["windows"]]
+        want = make_march_predictor([s._predict for s in subs], edges, 1)(
+            torch.from_numpy(pts))
+        np.testing.assert_allclose(u_t, want[:, 0].detach().numpy(), rtol=0,
+                                   atol=1e-6)
+        with pytest.raises(ValueError, match="--problem"):
+            tserve.PINNServer(str(tmp_path), None, device="cpu")
+    finally:
+        torch.set_num_threads(before)
+
+
 def test_problem_registry():
     prob = tproblems.with_hard_bc(tproblems.get_problem("annulus_laplace"))
     assert prob.hard_bc == tuple(HARD) and prob.dim == 2
@@ -300,8 +389,7 @@ def test_problem_registry():
                                [1.0, 0.0, np.log(0.5) / np.log(0.1)],
                                rtol=1e-6, atol=1e-7)
     assert tuple(prob.bc_groups[0].target(z).shape) == (3, 1)
-    with pytest.raises(KeyError, match="Queue A item 13a"):
-        tproblems.get_problem("allen_cahn")
+    assert tproblems.get_problem("allen_cahn").name == "allen_cahn"
     with pytest.raises(KeyError, match="unknown"):
         tproblems.get_problem("no_such_problem")
 
@@ -310,7 +398,8 @@ def test_serve_path_imports_no_jax():
     """The port loads neither jax nor the JAX package tpinn."""
     code = ("import sys; import tpinn_torch.app.serve, "
             "tpinn_torch.core.polish, tpinn_torch.core.train, "
-            "tpinn_torch.problems, "
+            "tpinn_torch.problems, tpinn_torch.problems.oracles, "
+            "tpinn_torch.core.march, "
             "tpinn_torch.kernels.mlp_taylor, tpinn_torch.kernels._build; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'tpinn')))")

@@ -25,10 +25,16 @@ correction subtracted, u(z) − T(z); ``deflate="auto" | "full"`` computes
 one at load for a checkpoint trained without it.  The corrected residual
 differentiates through T(z) with the generic jvp engine.
 
+A time-marching record (``march.json``, core.march.run_time_marching,
+given as the file or the directory that holds it) is served as the
+piecewise-in-time composite of its window checkpoints, one sub-server per
+window.  The composite hides the window nets from
+``taylor.fast_partials``, so its ``/residual`` takes the generic jvp
+engine.
+
 Not ported yet, and refused with NotImplementedError rather than served
-wrong: ensembles (``ensemble.json``), time-marching (``march.json``),
-patch, coupled-system and inverse checkpoints.  ROADMAP.md Queue A items
-13 and 15 bring them.
+wrong: ensembles (``ensemble.json``), patch, coupled-system and inverse
+checkpoints.  ROADMAP.md Queue A items 13 and 15 bring them.
 """
 
 from __future__ import annotations
@@ -70,11 +76,14 @@ class PINNServer:
         self.device = _resolve_device(device)
 
         cpath = Path(checkpoint)
-        for record, what, item in (("ensemble.json", "ensemble", "13"),
-                                   ("march.json", "time-marching", "13")):
-            if cpath.name == record or (cpath.is_dir()
-                                        and (cpath / record).exists()):
-                _refuse(what, item)
+        if cpath.name == "ensemble.json" or (
+                cpath.is_dir() and (cpath / "ensemble.json").exists()):
+            _refuse("ensemble", "13")
+        if cpath.is_dir() and (cpath / "march.json").exists():
+            cpath = cpath / "march.json"
+        if cpath.name == "march.json":
+            self._load_march(cpath, problem_name)
+            return
 
         with np.load(checkpoint) as raw:
             meta = (json.loads(bytes(raw["__meta__"]).decode())
@@ -162,6 +171,32 @@ class PINNServer:
             term = polish.deflation_term(defl)
             raw = predictor
             predictor = lambda p, z: raw(p, z) - term(z)
+        self.predictor = predictor
+
+    def _load_march(self, record: Path, problem_name: Optional[str]):
+        """The composite of a time-marching record's window checkpoints
+        (their paths relative to the record's directory)."""
+        from tpinn_torch.core.march import make_march_predictor
+
+        if problem_name is None:
+            raise ValueError("march serving needs --problem")
+        problem = problems.get_problem(problem_name)
+        self.problem = problem
+        self.compiled = pde.compile_pde(problem.equation, problem.coords)
+        self.deflation = None
+        rec = json.loads(record.read_text())
+        subs = [PINNServer(str(record.parent / w), problem_name,
+                           device=self.device) for w in rec["windows"]]
+        preds = tuple(s.predictor for s in subs)
+        edges = tuple(rec["edges"])
+        ai = int(rec["axis_index"])
+
+        def predictor(params_list, z):
+            fns = [lambda zz, f=f, p=p: f(p, zz)
+                   for f, p in zip(preds, params_list)]
+            return make_march_predictor(fns, edges, ai)(z)
+
+        self.params = [s.params for s in subs]
         self.predictor = predictor
 
     def _predict(self, z: torch.Tensor) -> torch.Tensor:

@@ -31,6 +31,7 @@ import math
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -64,14 +65,29 @@ def lhs_box(gen: torch.Generator, n: int, lb, ub, dtype=torch.float32) -> Tensor
 # ---------------------------------------------------------------------------
 
 
+def fixed_order_cdf(f: Tensor) -> Tensor:
+    """``[0, f_0, f_0 + f_1, …]``: the cumulative mass of the 1-D tensor
+    ``f``, summed in index order in float64 on the host and rounded to
+    ``f``'s dtype, on ``f``'s device.  The same bits on every run and every
+    device (a device scan adds its tiles' partial sums in whatever order
+    they finish, which moved a draw at a cell's edge between runs); the
+    bits of ``torch.cumsum`` on the CPU.  One copy each way and one
+    synchronisation per draw."""
+    host = np.cumsum(f.detach().to("cpu", torch.float64).numpy())
+    cdf = torch.from_numpy(np.concatenate([[0.0], host])).to(f.dtype)
+    return cdf.to(f.device)
+
+
 def _cell_index(gen: torch.Generator, f: Tensor, n: int) -> Tensor:
     """``n`` cell indices drawn with probability ∝ the cell masses ``f``
     (the floor of ``interp(u·total, cdf, 0..M)`` of the JAX version: the
     last cell whose cumulative mass does not exceed the draw).  A cell of
     zero mass is never drawn: on a plateau of the cumulative sum the search
     lands on the plateau's last cell, the one whose mass follows, and a
-    draw that rounds up to the total goes to the last cell that has any."""
-    cdf = torch.cat([f.new_zeros(1), torch.cumsum(f, 0)])
+    draw that rounds up to the total goes to the last cell that has any.
+    The cumulative mass is ``fixed_order_cdf``'s, so a draw repeats
+    bitwise on the card."""
+    cdf = fixed_order_cdf(f)
     draws = torch.rand((n,), generator=gen, device=f.device,
                        dtype=f.dtype) * cdf[-1]
     pos = torch.searchsorted(cdf, draws, right=True) - 1

@@ -1,8 +1,8 @@
 """Problem presets with analytic oracles (port of ``tpinn.problems``).
 
-Every scalar preset of ``tpinn.problems`` but ``allen_cahn``, each with a
-torch oracle, its BC groups and (where ``tpinn`` has one) its hard-BC
-ansatz, and the best-known training recipes (``RECIPES``, ``get_recipe``;
+Every scalar preset of ``tpinn.problems``, each with a torch oracle, its
+BC groups and (where ``tpinn`` has one) its hard-BC ansatz, and the
+best-known training recipes (``RECIPES``, ``get_recipe``;
 tpinn_torch.problems.recipes), so that
 
     problem, spec = problems.get_recipe("poisson_3d")
@@ -10,13 +10,14 @@ tpinn_torch.problems.recipes), so that
 
 is the one-liner from PDE name to the preset's configuration.  Each
 equation string goes through the symbolic compiler; problems with a
-forcing use manufactured solutions, so every oracle is closed-form (or,
-for ``burgers_shock``, a quadrature in host float64).  Building a preset
-does no device work.
+forcing use manufactured solutions, so every oracle is closed-form but
+two computed on the host in float64: ``burgers_shock``'s quadrature and
+``allen_cahn``'s spectral reference solve (problems.oracles).  Building a
+preset does no device work.  ``convection_1d``, ``wave_1d`` and
+``allen_cahn`` train by time marching (``Recipe.march``,
+core.march.run_time_marching).
 
-Not ported: ``allen_cahn`` (its oracle is a spectral reference solve and
-its feature kind ``periodic_fit``; it comes with time marching) and the
-coupled-system presets.
+Not ported: the coupled-system presets (ROADMAP.md Queue A item 13b).
 """
 
 from __future__ import annotations
@@ -36,10 +37,7 @@ __all__ = ["PRESETS", "HARD_BC", "RECIPES", "Recipe", "get_problem",
            "get_recipe", "with_hard_bc", "annulus_laplace", "poisson_1d",
            "burgers_1d", "burgers_shock", "poisson_2d", "heat_2d",
            "helmholtz_2d", "poisson_3d", "convection_1d", "lshape_laplace",
-           "wave_1d", "kdv_1d"]
-
-# presets of tpinn.problems that are not ported yet
-_LATER = ("allen_cahn",)
+           "allen_cahn", "wave_1d", "kdv_1d"]
 
 PI = math.pi
 
@@ -285,6 +283,57 @@ def convection_1d(c: float = 30.0) -> ProblemSpec:
     )
 
 
+_AC_EXACT = None
+
+
+def _allen_cahn_exact(z: np.ndarray) -> np.ndarray:
+    """The ETDRK4 spectral reference (problems.oracles) at host float64
+    points, its interpolant built once per process (about a second)."""
+    global _AC_EXACT
+    if _AC_EXACT is None:
+        from tpinn_torch.problems import oracles
+
+        t, x, U = oracles.allen_cahn_solution()
+        _AC_EXACT = oracles.grid_interpolant(t, x, U, 2.0)
+    return _AC_EXACT(z)
+
+
+def allen_cahn() -> ProblemSpec:
+    """The Raissi et al. (2019) Allen–Cahn benchmark, a stiff
+    reaction–diffusion problem:
+
+        u_t − 1e-4·u_xx + 5u³ − 5u = 0,   x∈[−1,1], t∈[0,1]
+        u(x,0) = x²cos(πx),  periodic in x
+
+    The bistable reaction sharpens the IC into near-±1 plateaus separated
+    by interface layers √γ ≈ 0.01 wide; plain space-time training fails
+    here, and its recipe marches in time.  Periodicity is hard-posed by the
+    domain-fitted periodic embedding (``periodic_fit``, which kernel B1
+    does not take: the generic jvp engine trains it), so the IC is the only
+    data term.  No closed form: the oracle is the ETDRK4 Fourier-spectral
+    reference, evaluated on the host in float64 and returned on the
+    input's device in its dtype (one round trip per call, never inside a
+    training step)."""
+    def exact(z):
+        u = _allen_cahn_exact(z.detach().cpu().numpy())
+        return torch.as_tensor(u, dtype=z.dtype, device=z.device)
+
+    ic = pde.compile_coord_expr("x**2*cos(pi*x)", coords=("x", "t"))
+    return ProblemSpec(
+        name="allen_cahn",
+        equation="u_t - 0.0001*u_xx + 5*u**3 - 5*u",
+        coords=("x", "t"),
+        lb=(-1.0, 0.0),
+        ub=(1.0, 1.0),
+        feature_kinds=(net.PERIODIC_FIT, net.MINMAX),
+        bc_groups=(
+            sample.BCGroup(lo=(-1.0, 0.0), hi=(1.0, 0.0), value_fn=ic,
+                           value_expr="x**2*cos(pi*x)"),   # IC
+        ),
+        exact=exact,
+    )
+
+
 def wave_1d() -> ProblemSpec:
     """Second-order-in-time: the 1-D wave equation u_tt = 4u_xx on
     x∈[0,1], t∈[0,1] with the two-mode standing wave
@@ -411,21 +460,16 @@ PRESETS = {
     "poisson_3d": poisson_3d,
     "convection_1d": convection_1d,
     "lshape_laplace": lshape_laplace,
+    "allen_cahn": allen_cahn,
     "wave_1d": wave_1d,
     "kdv_1d": kdv_1d,
 }
 
 
-def _later(name: str) -> str:
-    return (" (not ported to tpinn_torch yet: it comes with time marching, "
-            "ROADMAP.md Queue A item 13a)" if name in _LATER else "")
-
-
 def get_problem(name: str) -> ProblemSpec:
     if name in PRESETS:
         return PRESETS[name]()
-    raise KeyError(f"unknown problem {name!r}{_later(name)}; available: "
-                   f"{sorted(PRESETS)}")
+    raise KeyError(f"unknown problem {name!r}; available: {sorted(PRESETS)}")
 
 
 # Hard Dirichlet ansatz (lift, bubble) per preset: u = lift + bubble·N
@@ -452,6 +496,7 @@ HARD_BC = {
     "poisson_3d": ("0", "x*(1 - x)*y*(1 - y)*z*(1 - z)"),
     # hard IC only — x is handled by the periodic feature map
     "convection_1d": ("sin(x)", "t"),
+    "allen_cahn": ("x**2*cos(pi*x)", "t"),
     # the t² bubble pins u(x,0) AND u_t(x,0); x(1−x) the edges
     "wave_1d": ("sin(pi*x) + 0.5*sin(4*pi*x)", "t**2*x*(1 - x)"),
 }
@@ -465,7 +510,7 @@ def with_hard_bc(problem: ProblemSpec) -> ProblemSpec:
 def get_recipe(name: str):
     """(ProblemSpec, TrainSpec) of the preset's best-known configuration."""
     if name not in RECIPES:
-        raise KeyError(f"no recipe for {name!r}{_later(name)}; available: "
+        raise KeyError(f"no recipe for {name!r}; available: "
                        f"{sorted(RECIPES)}")
     rec = RECIPES[name]
     problem = get_problem(name)

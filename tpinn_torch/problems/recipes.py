@@ -25,9 +25,11 @@ Recipe notes:
   1-D/2-D and box-shaped).
 - ``pad_features=3`` is kept because the recipes are copied field for
   field; it duplicates an input column and leaves the model class as it is.
-- ``march`` > 0 marks a time-marching configuration; ``spec`` then
-  describes ONE window.  ``get_recipe`` returns ``(problem, spec)`` for
-  these as ``tpinn``'s does; running them by marching is not ported.
+- ``march`` > 0 marks a time-marching configuration (``convection_1d``,
+  ``allen_cahn``, ``wave_1d``); ``spec`` then describes ONE window, and
+  the recipe runs as
+  ``march.run_time_marching(problem, spec, recipe.march, device=...)``
+  (tpinn_torch.core.march), not through ``run_training``.
 """
 
 from __future__ import annotations
@@ -50,8 +52,8 @@ class Recipe:
     expected_rel_l2: float
     run_tag: str                  # tpinn's evidence record of that run
     provisional: bool = False     # best measured so far, not a gate result
-    # > 0: a time-marching configuration with this many windows (marching
-    # itself is not ported); hard_bc is False there (soft IC handoff)
+    # > 0: a time-marching configuration with this many windows, run by
+    # core.march.run_time_marching; hard_bc is False there (soft IC handoff)
     march: int = 0
 
 
@@ -185,6 +187,19 @@ RECIPES = {
         ),
         hard_bc=False, expected_rel_l2=1.2e-3, run_tag="cvTM",
         march=8),
+    # one window of an 8-window marching configuration with the
+    # domain-fitted periodic embedding (periodic_fit: the generic engine)
+    "allen_cahn": Recipe(
+        spec=TrainSpec(
+            n_col=4096, n_band=0, n_adaptive=1024, n_bd=512,
+            lw=(1.0, 0.0), grid=111,
+            stages=(StageSpec(depth=4, width=64, act_first="tanh",
+                              scl=1.0, epsil=1.0,
+                              adam_epochs=12000, lbfgs_epochs=4000),),
+            pad_features=3, testing_size=(201, 101),
+        ),
+        hard_bc=False, expected_rel_l2=8.1e-3, run_tag="acM8",
+        provisional=True, march=8),
     # one window of a 4-window Cauchy-handoff marching configuration; lw0 =
     # 0.01 keeps the residual from swamping the soft IC/edge data
     "wave_1d": Recipe(
