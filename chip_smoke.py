@@ -47,8 +47,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
       chunks run.
    c. B3 against its plain version over 1,000 steps, with a learning-rate
       change half-way, on n = 32,801 (the 6x80 net on 3 features), an odd
-      n, 140,001 (past one grid: the threads loop) and 12,801 (the
-      marching windows' 4x64 net on 3 features), each on aligned
+      n, 140,001 (past one grid: the threads loop), 12,801 (the
+      marching windows' 4x64 net on 3 features) and the system path's
+      vectors (17,091: kovasznay's and taylor_green's 5x64 nets with 3
+      outputs; 37,826: schrodinger's 5x96 with 2; 1 and the other leaves
+      of phase 5f's inverse case under the tree layout), each on aligned
       vectors and on views one float off 16-byte alignment: through the
       Adam phase's launcher (FusedAdam, the step and the bias corrections
       read on the device) and through adam_update_flat, which must agree
@@ -130,6 +133,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
    in-process composite, /residual's route and B1 count; convection_1d's
    first two windows trained again with the same loss histories, bit for
    bit.
+5f. Coupled systems (the system slice's path): the three system recipes
+   (SYSTEM_RECIPES, built into a TrainSpec as tpinn's `system --recipe`
+   does) through run_system at their full width and batch, the budgets
+   cut (SYSTEM_CUTS: kovasznay, the main path, 300 / 150 against 12,000 /
+   8,000 at 5x64 and 13,600 points a step; taylor_green 100 / 60 against
+   10,000 / 8,000, 3 coordinates with the testing_size fallback;
+   schrodinger 100 / 60 against 20,000 / 8,000, periodic_fit and the
+   numpy oracle; tail_max 20 and the cadences as in 5e): launch counts
+   reset before each and read after (B3 once per Adam step, tail
+   included, through the launcher; B1 and B2 no time: the nets have 2 or
+   3 outputs and take the generic engine); every B3 vector of a size
+   phase 3c holds; rel-L2 aggregate and per field finite and printed
+   beside tpinn's TPU record; params_stage_1.npz and system.json written;
+   the checkpoint served on the card by PINNServer with no preset,
+   /predict within rtol 1e-5, atol 1e-6 of the trainer's predictor at
+   1,000 points, /residual one finite column per equation (B1 +0);
+   kovasznay's first 50 Adam steps run twice, one loss-history digest
+   equal to the main run's first rows; the tests' inverse oscillator
+   (u_x - v, v_x + w2*u) under adam_layout="tree", its 1-element
+   coefficient vector through B3 on the card, w2 recovered within 1e-2
+   and printed.
 6. Timing (medians of synchronised runs): B1 inside the residual at the
    serving shapes; B1 alone against its plain version at the served
    262,144 points, the recipe's batch and L-BFGS grid (46,000, 202,500)
@@ -144,7 +168,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    against the one PyTorch call that computes the same update
    (torch._fused_adam_, lr a device tensor) in four measures: around the
    call, host time a call, device time a launch in a queue of 100 behind
-   a long kernel, and device time a launch replayed from a CUDA graph.
+   a long kernel, and device time a launch replayed from a CUDA graph;
+   the kovasznay Adam step at the recipe's width and batch (the generic
+   engine; B3 against its plain version) and /residual of phase 5f's
+   kovasznay checkpoint at 65,536 points.
 
 Partial runs, for work on kernels B1, B2 and B3 and on one path (not part
 of the smoke):
@@ -159,6 +186,8 @@ of the smoke):
     python3 chip_smoke.py --lbfgs-compare DIR  # phases 5b, 5c in DIR, here
     python3 chip_smoke.py --p3d-repeat DIR N   # 5c's training N times each
     python3 chip_smoke.py --march-only         # phases 2 and 5e
+    python3 chip_smoke.py --system-only        # phases 2, 3c, 5f, system timing
+    python3 chip_smoke.py --system-recipe NAME # one system recipe as written
     python3 chip_smoke.py --determinism [DIR]  # warned ops of 5c's training
 
 The compares time the kernel at phase 6's shapes in DIR (say a git
@@ -183,8 +212,9 @@ CUBLAS_WORKSPACE_CONFIG=:4096:8 in that process only, and lists every
 operation PyTorch warned about with the line of Python that called it.
 
 The line before the last is a JSON object describing the kernels (each
-with its launches on the newest main path, phase 5e's three marching
-recipes together, and on every path by name, its time, its plain version's, the card's bound for the
+with its launches on the two newest main paths, phase 5e's three
+marching recipes and phase 5f's coupled systems together, and on every
+path by name, its time, its plain version's, the card's bound for the
 same work and, where one PyTorch call computes the same function, that
 call's time; B1 and B2 with every timed shape and its plan under
 "shapes", B1's times around the call, with its device and host times
@@ -275,6 +305,18 @@ MARCH_CUTS = {"convection_1d": (300, 150), "wave_1d": (300, 150),
               "allen_cahn": (100, 60)}
 MARCH_CADENCE = dict(tail_max=20, density_every=100, plateau_every=200)
 MARCH_TOL = 1e-6    # composite vs its windows, handoffs, served /predict
+# phase 5f: the three coupled-system recipes (SYSTEM_RECIPES, built into a
+# TrainSpec as tpinn's `system --recipe` does: system_spec) at their widths
+# and batches, the budgets cut: (adam_epochs, lbfgs_epochs) against the
+# recipes' 12,000 / 8,000 (kovasznay, the main path: 5x64, 13,600 points a
+# step), 10,000 / 8,000 (taylor_green) and 20,000 / 8,000 (schrodinger);
+# tail_max 4,000 -> 20 and the cadences that scale with the budget cut as
+# in phase 5e
+SYSTEM_CUTS = {"kovasznay": (300, 150), "taylor_green": (100, 60),
+               "schrodinger": (100, 60)}
+SYSTEM_CADENCE = MARCH_CADENCE
+SYSTEM_REPEAT = 50  # Adam steps of kovasznay's training run twice
+SERVE_RTOL, SERVE_ATOL = 1e-5, 1e-6  # served /predict vs the trainer's
 QUEUED = 100        # back-to-back launches timed behind a long kernel
 # B3 past one grid of 132 SMs x 4 blocks x 256 threads: its threads loop
 LOOP_N = 140_001
@@ -677,6 +719,94 @@ def phase_b2(dev, gen):
     return worst_abs
 
 
+def system_spec(name, adam_epochs=None, lbfgs_epochs=None, **spec_kw):
+    """SYSTEM_RECIPES[name] as tpinn's CLI builds it (`tpinn system --name
+    NAME --recipe`, tpinn/cli.py:233-249): one stage of depth x width,
+    scl = epsil = 1, n_band 0, lw (1, 0), seed 1234, pad_features 3; the
+    budgets replaced where given, and the TrainSpec fields of spec_kw."""
+    import dataclasses
+
+    from tpinn_torch.core.train import StageSpec, TrainSpec
+    from tpinn_torch.problems.systems import SYSTEM_RECIPES
+
+    rec = SYSTEM_RECIPES[name]
+    spec = TrainSpec(
+        n_col=rec["n_col"], n_band=0, n_adaptive=rec["n_adaptive"],
+        n_bd=rec["n_bd"], lw=(1.0, 0.0), seed=1234, pad_features=3,
+        stages=(StageSpec(
+            depth=rec["depth"], width=rec["width"], scl=1.0, epsil=1.0,
+            adam_epochs=(rec["adam"] if adam_epochs is None
+                         else adam_epochs),
+            lbfgs_epochs=(rec["lbfgs"] if lbfgs_epochs is None
+                          else lbfgs_epochs)),))
+    return dataclasses.replace(spec, **spec_kw)
+
+
+def inverse_case():
+    """Phase 5f's inverse system, the tests' oscillator: u_x - v, v_x +
+    w2*u on [0, 1], u(0) = 0, full-state observations of u = sin(pi x), v
+    = pi cos(pi x) (true w2 = pi^2), w2 from 5.0, at the tests' size
+    (tests/test_torch_system_train.py), with adam_layout="tree": one B3
+    vector per leaf, the coefficient a 1-element one.  Returns (problem,
+    InverseSpec, TrainSpec)."""
+    import math
+
+    import torch
+
+    from tpinn_torch.core import sample
+    from tpinn_torch.core.inverse import InverseSpec
+    from tpinn_torch.core.system import SystemSpec
+    from tpinn_torch.core.train import StageSpec, TrainSpec
+
+    pi = math.pi
+    problem = SystemSpec(
+        name="osc_inverse", equations=("u_x - v", "v_x + w2*u"),
+        fields=("u", "v"), coords=("x",), lb=(0.0,), ub=(1.0,),
+        bc_groups=(sample.BCGroup(lo=(0.0,), hi=(0.0,), value=0.0,
+                                  field=0),),
+        exact=lambda z: torch.cat([torch.sin(pi * z[:, :1]),
+                                   pi * torch.cos(pi * z[:, :1])], dim=1))
+    spec = TrainSpec(
+        n_col=256, n_band=0, n_adaptive=64, n_bd=16, seed=1,
+        stages=(StageSpec(depth=3, width=24, adam_epochs=600,
+                          lbfgs_epochs=900),),
+        grid=64, lw=(1.0, 0.0), testing_size=(201,), pad_features=3,
+        log_every=300, adam_layout="tree")
+    return problem, InverseSpec(params=("w2",), init=(5.0,), n_obs=80), spec
+
+
+def system_adam_sizes():
+    """The vectors B3 updates on the system path: the three system
+    recipes' nets raveled (the flat layout) and, under the tree layout,
+    each leaf of the inverse case's {"net", "coef"} tree (its coefficient
+    a 1-element vector).  Phase 3c holds them."""
+    import torch
+
+    from tpinn_torch.core import net
+    from tpinn_torch.problems.systems import SYSTEM_RECIPES, get_system
+
+    sizes = set()
+    for name in SYSTEM_RECIPES:
+        problem, st = get_system(name), system_spec(name).stages[0]
+        fm = net.feature_map_for(problem.feature_kinds, pad_to=3)
+        params = net.init_params(
+            torch.Generator().manual_seed(SEED),
+            net.MLPSpec(depth=st.depth, width=st.width,
+                        out_dim=len(problem.fields)), fm, "cpu")
+        sizes.add(sum(t.numel() for t in leaves_of(params)))
+    problem, _, spec = inverse_case()
+    st = spec.stages[0]
+    params = net.init_params(
+        torch.Generator().manual_seed(SEED),
+        net.MLPSpec(depth=st.depth, width=st.width,
+                    out_dim=len(problem.fields)),
+        net.feature_map_for(problem.feature_kinds,
+                            pad_to=spec.pad_features), "cpu")
+    sizes.update(t.numel() for t in leaves_of(params))
+    sizes.add(1)
+    return sorted(sizes)
+
+
 def at_offset(x, offset):
     """A copy of the 1-D ``x`` as a view ``offset`` elements into a buffer
     of its own: at offset 1 a float32 vector sits 4 bytes off 16-byte
@@ -692,15 +822,18 @@ def phase_b3(dev):
     """B3 against its plain version over ADAM_STEPS steps, lr halved at
     the midpoint, through the Adam phase's launcher (FusedAdam, the step
     counted on the device) and through adam_update_flat side by side, at
-    n = ADAM_N, 1,001 (one element a thread), LOOP_N (the threads loop)
-    and the marching windows' parameter count, on aligned vectors and on
-    views one float off alignment; then the graph check."""
+    n = ADAM_N, 1,001 (one element a thread), LOOP_N (the threads loop),
+    the marching windows' parameter count and the system path's vectors
+    (system_adam_sizes: 17,091, 37,826, 1 and the inverse case's leaves),
+    on aligned vectors and on views one float off alignment; then the
+    graph check."""
     import torch
 
     from tpinn_torch.kernels import adam
 
     worst_abs = 0.0
-    for n in (ADAM_N, 1_001, LOOP_N, *march_adam_sizes()):
+    for n in (ADAM_N, 1_001, LOOP_N, *march_adam_sizes(),
+              *system_adam_sizes()):
         for offset in (0, 1):
             gen = torch.Generator(device=dev).manual_seed(SEED)
             p0 = torch.randn(n, generator=gen, device=dev)
@@ -1896,6 +2029,296 @@ def phase_march(dev, card):
     return by_path
 
 
+def run_system_counted(problem, spec, dev, out=None, inverse=None):
+    """run_system on the card, its checkpoint and record under ``out``
+    (when given), the launch counts reset before and read after, every
+    B3 launcher recorded.  Returns (result, log lines, launches, Adam
+    steps, launchers built, seconds)."""
+    import torch
+
+    from tpinn_torch.core.system import run_system
+
+    if out is not None:
+        shutil.rmtree(out, ignore_errors=True)
+    lines = []
+    reset_launches()
+    t0 = time.perf_counter()
+    with adam_launchers() as built:
+        res = run_system(problem, spec, inverse=inverse,
+                         output_dir=None if out is None else str(out),
+                         log_fn=lines.append, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    for line in lines:
+        print(f"  | {line}")
+    n_adam = [int(m.group(1)) for m in
+              (re.search(r"Adam done \((\d+) steps", ln) for ln in lines) if m]
+    st = spec.stages[0]
+    check(len(n_adam) == 1 and n_adam[0] >= st.adam_epochs,
+          f"{problem.name}: Adam phases logged {n_adam} for "
+          f"{st.adam_epochs} steps")
+    return res, lines, launches, n_adam[0], built, seconds
+
+
+def check_served_system(name, problem, res, out, dev, card):
+    """The system checkpoint served by PINNServer on the card with no
+    preset: /predict against the trainer's predictor (SERVE_RTOL,
+    SERVE_ATOL) at 1,000 points of the box, /residual one finite column
+    per equation through the generic engine (B1 no launch)."""
+    import numpy as np
+    import torch
+
+    from tpinn_torch.app.serve import PINNServer
+    from tpinn_torch.kernels import mlp_taylor
+
+    srv = PINNServer(str(out / "params_stage_1.npz"), device=dev)
+    check(srv.problem.name == problem.name,
+          f"{name}: served as {srv.problem.name!r}")
+    rng = np.random.default_rng(SEED)
+    pts = rng.uniform(problem.lb, problem.ub,
+                      (1_000, problem.dim)).astype(np.float32)
+    with http_server(srv) as base:
+        u = np.asarray(post(base, "/predict", pts.tolist())["u"])
+        before = mlp_taylor.LAUNCHES
+        f = np.asarray(post(base, "/residual", pts.tolist())["f"])
+        grew = mlp_taylor.LAUNCHES - before
+    with torch.no_grad():
+        want = res.predict(torch.from_numpy(pts).to(dev)).cpu().numpy()
+    m, n_eq = len(problem.fields), len(problem.equations)
+    check(u.shape == (1_000, m) and f.shape == (1_000, n_eq)
+          and bool(np.isfinite(u).all() and np.isfinite(f).all()),
+          f"{name}: served answers {u.shape}, {f.shape}, or not finite")
+    err = float(np.abs(u - want).max())
+    check(bool(np.all(np.abs(u - want) <= SERVE_ATOL
+                      + SERVE_RTOL * np.abs(want))),
+          f"{name}: served /predict vs the trainer's: max abs err {err}")
+    check(grew == 0, f"{name}: /residual launched B1 {grew} times")
+    print(f"  {name}: checkpoint served on the card with no preset: "
+          f"/predict [1000, {m}] equals the trainer's predictor (max abs "
+          f"difference {err:.2e}, rtol {SERVE_RTOL:g}, atol "
+          f"{SERVE_ATOL:g}); /residual [1000, {n_eq}] finite, max |f| "
+          f"{float(np.abs(f).max()):.3e}, generic engine (B1 +0), on {card}")
+
+
+def phase_system(dev, card, cuts=SYSTEM_CUTS, repeat=True, inverse=True,
+                 **spec_kw):
+    """The coupled-system path: each SYSTEM_RECIPES preset through
+    run_system on the card at its width and batch with the budgets of
+    ``cuts`` (and SYSTEM_CADENCE, unless spec_kw replaces it): launch
+    counts reset before and read after (B3 once per Adam step, tail
+    included, through the launcher; B1 and B2 no time: the nets have 2 or
+    3 outputs, the generic engine), every B3 vector of a size phase 3c
+    holds, rel-L2 aggregate and per field finite and printed beside
+    tpinn's TPU record, the checkpoint and system.json written and served
+    (check_served_system); with ``repeat``, kovasznay's first
+    SYSTEM_REPEAT Adam steps run twice (the same loss-history digest, and
+    the main run's first rows); with ``inverse``, the inverse case
+    (inverse_case) under adam_layout="tree", its 1-element coefficient
+    vector through B3, w2 recovered within 1e-2.  Returns {path:
+    launches}."""
+    import dataclasses
+    import math
+
+    import numpy as np
+
+    from tpinn_torch.core.system import run_system
+    from tpinn_torch.problems.systems import SYSTEM_RECIPES, get_system
+
+    by_path = {}
+    held = set(system_adam_sizes())
+    kw = {**SYSTEM_CADENCE, **spec_kw}
+    for name, (adam_epochs, lbfgs_epochs) in cuts.items():
+        rec = SYSTEM_RECIPES[name]
+        problem = get_system(name)
+        spec = system_spec(name, adam_epochs, lbfgs_epochs, **kw)
+        out = SMOKE_DIR / "system" / name
+        res, lines, launches, n_adam, built, seconds = run_system_counted(
+            problem, spec, dev, out)
+        check_adam_route(name, built, launches["adam"], [n_adam])
+        st = spec.stages[0]
+        n_pts = spec.n_col + spec.n_adaptive + spec.n_bd * len(
+            problem.bc_groups)
+        for k in ("taylor2_fwd", "taylor2_bwd"):
+            check(launches[k] == 0, f"{name}: {k} launched {launches[k]} "
+                                    f"times on a {len(problem.fields)}-output "
+                                    f"net")
+        sizes = sorted({x.p.numel() for x in built})
+        check(set(sizes) <= held, f"{name}: B3 on vectors of {sizes}, not "
+                                  f"all held in phase 3c")
+        fields = res.rel_l2_fields or ()
+        check(res.rel_l2 is not None and math.isfinite(res.rel_l2)
+              and len(fields) == len(problem.fields)
+              and all(math.isfinite(e) for e in fields),
+              f"{name}: rel-L2 {res.rel_l2}, per field {fields}")
+        record = json.loads((out / "system.json").read_text())
+        check(record["rel_l2"] == res.rel_l2
+              and record["fields"] == list(problem.fields),
+              f"{name}: system.json {record}")
+        if name == "taylor_green":
+            check(any("is not 3-D" in ln for ln in lines),
+                  "taylor_green: no testing_size fallback logged")
+        print(f"  run_system(get_system({name!r})), {st.depth}x{st.width}, "
+              f"{n_pts} points a step, budgets {st.adam_epochs} / "
+              f"{st.lbfgs_epochs} (recipe {rec['adam']} / {rec['lbfgs']}): "
+              f"{seconds:.1f} s, Adam steps {n_adam}, launches "
+              f"{launches}, B3 on vectors of {sizes} (held in phase 3c); "
+              f"rel-L2 {res.rel_l2:.4e} ("
+              + ", ".join(f"{f}={e:.4e}" for f, e in zip(problem.fields,
+                                                         fields))
+              + f"; TPU record {rec['run_tag']} at the full budget: "
+              f"{rec['expected_rel_l2']:g}), on {card}")
+        check_served_system(name, problem, res, out, dev, card)
+        by_path[name] = launches
+
+        if repeat and name == "kovasznay":
+            # the first SYSTEM_REPEAT Adam steps twice: one history, and
+            # the main run's first rows
+            short = dataclasses.replace(spec, tail_max=0, stages=(
+                dataclasses.replace(st, adam_epochs=SYSTEM_REPEAT,
+                                    lbfgs_epochs=0),))
+            hists = [run_system(problem, short, device=dev).history
+                     for _ in range(2)]
+            digests = [history_digest(h) for h in hists]
+            main = history_digest(np.ascontiguousarray(
+                res.history[:SYSTEM_REPEAT]))
+            check(digests[0] == digests[1] == main,
+                  f"kovasznay: {SYSTEM_REPEAT} Adam steps twice gave "
+                  f"digests {digests[0][:12]}, {digests[1][:12]}; the main "
+                  f"run's first rows {main[:12]}")
+            print(f"  kovasznay: the first {SYSTEM_REPEAT} Adam steps run "
+                  f"twice: one loss-history digest {digests[0][:12]}, the "
+                  f"main run's first {SYSTEM_REPEAT} rows the same")
+
+    if inverse:
+        problem, inv, spec = inverse_case()
+        res, lines, launches, n_adam, built, seconds = run_system_counted(
+            problem, spec, dev, inverse=inv)
+        sizes = [x.p.numel() for x in built]
+        check(len(built) > 1 and launches["adam"] == n_adam * len(built)
+              and all(x.t - 1 == n_adam for x in built),
+              f"inverse system: B3 launched {launches['adam']} times for "
+              f"{n_adam} Adam steps on {len(built)} leaves")
+        check(1 in sizes and set(sizes) <= held,
+              f"inverse system: B3 vectors {sizes}")
+        check(launches["taylor2_fwd"] == launches["taylor2_bwd"] == 0,
+              f"inverse system: launches {launches}")
+        w2 = res.coef["w2"]
+        err = abs(w2 - math.pi ** 2) / math.pi ** 2
+        check(isinstance(w2, float) and err < 1e-2 and res.rel_l2 < 5e-3,
+              f"inverse system: w2 {w2} ({err:.2e} off pi^2), rel-L2 "
+              f"{res.rel_l2}")
+        print(f"  inverse system (u_x - v, v_x + w2*u; adam_layout='tree'): "
+              f"{seconds:.1f} s, Adam steps {n_adam}, B3 {launches['adam']}"
+              f" launches on {len(built)} vectors of {sorted(sizes)} "
+              f"(the coefficient's of 1 among them); recovered w2 = {w2:.6f}"
+              f" (pi^2 = {math.pi ** 2:.6f}, {err:.2e} off), rel-L2 "
+              f"{res.rel_l2:.4e}, on {card}")
+        by_path["inverse"] = launches
+    return by_path
+
+
+def system_timing(dev, card):
+    """Phase 6's system timings: the kovasznay Adam step at the recipe's
+    width and batch (5x64, 13,600 points; the generic engine and autograd,
+    then B3 through a launcher, against the same step with B3's plain
+    version) and /residual of phase 5f's kovasznay checkpoint served at
+    65,536 points (the generic engine); synchronised host clock, medians
+    of TIMED_RUNS."""
+    import numpy as np
+    import torch
+
+    from tpinn_torch.app.serve import PINNServer
+    from tpinn_torch.core import net, pde, sample
+    from tpinn_torch.core.system import make_system_loss
+    from tpinn_torch.problems.systems import get_system
+
+    problem = get_system("kovasznay")
+    spec = system_spec("kovasznay")
+    st = spec.stages[0]
+    fm = net.feature_map_for(problem.feature_kinds, pad_to=spec.pad_features)
+    lb = torch.tensor(problem.lb, device=dev)
+    ub = torch.tensor(problem.ub, device=dev)
+    mspec = net.MLPSpec(depth=st.depth, width=st.width, out_dim=3)
+    params = net.init_params(torch.Generator().manual_seed(SEED), mspec, fm,
+                             dev)
+    pred = net.make_predictor(mspec, fm, lb, ub)
+    compiled = pde.compile_system(problem.equations, problem.coords,
+                                  problem.fields)
+    sample_fn, grids = sample.sampler_for(
+        sample.SamplerConfig(n_col=spec.n_col, n_band=0,
+                             n_adaptive=spec.n_adaptive, n_bd=spec.n_bd,
+                             grid=spec.grid),
+        problem.bc_groups, problem.lb, problem.ub, torch.float32, dev)
+    data = sample_fn(torch.Generator(device=dev).manual_seed(SEED),
+                     torch.ones_like(grids[0]))
+    loss_fn = make_system_loss(pred, compiled,
+                               tuple(g.field for g in problem.bc_groups))
+    lw = torch.tensor(spec.lw, device=dev)
+    with torch.no_grad():
+        ref = loss_fn(params, data, lw, torch.ones((), device=dev))[1][0]
+    n = data["x_col"].shape[0]
+    ms = alternating_ms({
+        "b3": adam_step(loss_fn, params, data, lw, ref),
+        "plain": adam_step(loss_fn, params, data, lw, ref, plain=True)})
+    print(f"  Adam step, kovasznay ({st.depth}x{st.width}, 3 outputs, "
+          f"{n} points, generic engine): with B3 {ms['b3']:.3f} ms, with "
+          f"B3's plain version {ms['plain']:.3f} ms (synchronised host "
+          f"clock, median of {TIMED_RUNS}, alternating), on {card}")
+    srv = PINNServer(str(SMOKE_DIR / "system" / "kovasznay" /
+                         "params_stage_1.npz"), device=dev)
+    rng = np.random.default_rng(SEED)
+    z = torch.from_numpy(rng.uniform(problem.lb, problem.ub, (65_536, 2))
+                         .astype(np.float32)).to(dev)
+    res_ms = statistics.median(
+        [sync_ms(lambda: srv._residual(z)) for _ in range(3 + TIMED_RUNS)]
+        [3:])
+    print(f"  residual (kovasznay system checkpoint, 3 equations) N=65536: "
+          f"{res_ms:.3f} ms (generic engine; synchronised host clock, "
+          f"median of {TIMED_RUNS}), on {card}")
+    return {"step_kovasznay": (ms["b3"], ms["plain"]),
+            "residual_kovasznay_65536": res_ms}
+
+
+def system_only() -> None:
+    """Phases 1, 2, 3c, 5f and phase 6's system timings alone."""
+    import torch
+
+    card = card_line()
+    print(f"  card: {card}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda", 0)
+    phase("2. build")
+    phase_build()
+    phase("3c. B3 vs plain")
+    phase_b3(dev)
+    phase("5f. coupled systems (the system slice's path)")
+    phase_system(dev, card)
+    phase("6. system timing")
+    system_timing(dev, card)
+
+
+def system_recipe(name) -> None:
+    """One system recipe as written (SYSTEM_RECIPES' budgets, TrainSpec's
+    cadences) through run_system on the card, served afterwards."""
+    import torch
+
+    card = card_line()
+    print(f"  card: {card}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda", 0)
+    phase("2. build")
+    phase_build()
+    phase(f"5f. {name} as written")
+    phase_system(dev, card, cuts={name: (None, None)}, repeat=False,
+                 inverse=False, tail_max=4000, density_every=2000,
+                 plateau_every=4000)
+
+
 def queued_ms(fn, blocker) -> float:
     """Device time per launch of ``fn`` in a queue of QUEUED launches: the
     host enqueues them while ``blocker`` (a long kernel) still runs, so the
@@ -2885,16 +3308,26 @@ def main() -> int:
 
     phase("5e. marching (the time-marching slice's path)")
     march_launches = phase_march(dev, card)
-    launches = {k: sum(v[k] for v in march_launches.values())
-                for k in KERNELS}
     for k in KERNELS:
-        check(launches[k] > 0, f"{k} launched no time on the marching path")
+        check(sum(v[k] for v in march_launches.values()) > 0,
+              f"{k} launched no time on the marching path")
+
+    phase("5f. coupled systems (the system slice's path)")
+    system_launches = phase_system(dev, card)
+    check(system_launches["kovasznay"]["adam"] > 0,
+          "adam launched no time on the system path")
+    # the kernels line's launches: the two newest main paths, marching
+    # (B1, B2, B3) and coupled systems (B3 only), each read on its own
+    launches = {k: sum(v[k] for v in (*march_launches.values(),
+                                      *system_launches.values()))
+                for k in KERNELS}
 
     phase("6. timing")
     times = phase_timing(dev, gen, servers)
     times.update(phase_timing_train(dev))
     times.update(b1_times(dev))
     mode_rows = b1_mode_times(dev)
+    times.update(system_timing(dev, card))
     for n in (65_536, 262_144):
         k_ms, p_ms = times[f"residual_{n}"]
         print(f"  residual N={n}: kernel {k_ms:.3f} ms vs plain {p_ms:.3f} ms "
@@ -2903,6 +3336,10 @@ def main() -> int:
         k_ms, p_ms = times[f"step_{label}"]
         print(f"  Adam step ({label}): kernel engine {k_ms:.3f} ms vs plain "
               f"{p_ms:.3f} ms on {card}")
+    k_ms, p_ms = times["step_kovasznay"]
+    print(f"  Adam step (kovasznay system): with B3 {k_ms:.3f} ms vs plain "
+          f"Adam {p_ms:.3f} ms; /residual of its checkpoint at 65,536 "
+          f"points {times['residual_kovasznay_65536']:.3f} ms, on {card}")
 
     print(f"  card: {card}")
     # the least time the card could take for each kernel's timed call: the
@@ -2951,12 +3388,14 @@ def main() -> int:
                                  **{k: v[src] for k, v in
                                     other_launches.items()},
                                  **{f"march_{k}": v[src] for k, v in
-                                    march_launches.items()}}, **extra})
+                                    march_launches.items()},
+                                 **{f"system_{k}": v[src] for k, v in
+                                    system_launches.items()}}, **extra})
         k = kernels[-1]
         print(f"  {name}: {k['ms']:.4f} ms, bound {k['bound_ms']:.5f} ms by "
               f"{k['bound_by']} ({100 * k['bound_ms'] / k['ms']:.1f}% of the "
-              f"time), launches on the marching path {launches[src]}, on "
-              f"{card}")
+              f"time), launches on the marching and system paths "
+              f"{launches[src]}, on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2985,6 +3424,10 @@ if __name__ == "__main__":
         p3d_repeat(sys.argv[2], int(sys.argv[3]))
     elif sys.argv[1:2] == ["--march-only"]:
         march_only()
+    elif sys.argv[1:2] == ["--system-only"]:
+        system_only()
+    elif sys.argv[1:2] == ["--system-recipe"] and len(sys.argv) == 3:
+        system_recipe(sys.argv[2])
     elif sys.argv[1:2] == ["--determinism"] and len(sys.argv) <= 3:
         determinism(sys.argv[2] if len(sys.argv) == 3 else None)
     else:

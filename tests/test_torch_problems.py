@@ -70,10 +70,9 @@ def _group_points(grp, n, seed):
     return rng.uniform(grp.lo, grp.hi, (n, len(grp.lo))).astype(np.float32)
 
 
-def test_registry_is_tpinns_without_allen_cahn():
+def test_registry_is_tpinns():
     """The registry is tpinn's, in tpinn's order: every preset, every
-    recipe and every hard-BC row, ``allen_cahn`` included since it came
-    with time marching (the name is from when it was the one left out)."""
+    recipe and every hard-BC row, ``allen_cahn`` included."""
     assert len(tproblems.PRESETS) == 13 and len(tproblems.RECIPES) == 13
     assert list(tproblems.PRESETS) == list(jproblems.PRESETS)
     assert list(tproblems.RECIPES) == list(JRECIPES)

@@ -180,12 +180,13 @@ GALERKIN = {"kind": "galerkin", "lb": [0.1, 0.0], "ub": [1.0, TWO_PI],
             "coeffs": [3.1e-3, -1.7e-3, 0.9e-3], "linearized": False}
 
 
-@pytest.mark.parametrize("what", ["deflation", "ensemble", "system",
-                                  "inverse", "patch"])
+@pytest.mark.parametrize("what", ["deflation", "ensemble", "inverse",
+                                  "patch"])
 def test_unported_checkpoints_refused(tmp_path, what):
-    """Ensemble, system, inverse and patch checkpoints are refused; a
+    """Ensemble, scalar inverse and patch checkpoints are refused; a
     deflation-corrected one is served, with the correction subtracted
-    (march records are served: test_march_record_served_by_both_packages)."""
+    (march records are served: test_march_record_served_by_both_packages;
+    system checkpoints: test_torch_system_train.py)."""
     fm = jnet.feature_map_for(KINDS)
     s = jnet.MLPSpec(depth=2, width=8)
     p = jnet.init_params(jax.random.PRNGKey(0), s, fm)
@@ -193,8 +194,6 @@ def test_unported_checkpoints_refused(tmp_path, what):
     meta = _meta([s])
     meta.update({
         "deflation": {"deflation": GALERKIN},
-        "system": {"system": {"equations": ["u_x - v"],
-                              "fields": ["u", "v"]}},
         "inverse": {"inverse": True, "coef": {"lam": 0.5}},
         "patch": {"patch": {"n": [2, 2], "overlap": 0.2}},
     }.get(what, {}))
@@ -399,7 +398,8 @@ def test_serve_path_imports_no_jax():
     code = ("import sys; import tpinn_torch.app.serve, "
             "tpinn_torch.core.polish, tpinn_torch.core.train, "
             "tpinn_torch.problems, tpinn_torch.problems.oracles, "
-            "tpinn_torch.core.march, "
+            "tpinn_torch.core.march, tpinn_torch.core.system, "
+            "tpinn_torch.core.inverse, tpinn_torch.problems.systems, "
             "tpinn_torch.kernels.mlp_taylor, tpinn_torch.kernels._build; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'tpinn')))")

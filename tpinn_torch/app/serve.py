@@ -8,7 +8,7 @@ device the residual's u-partials come from kernel B1
 (feature map, then a ``torch.matmul`` chain).
 
 Run:  python -m tpinn_torch.app.serve --checkpoint out/params_stage_1.npz \
-          --problem annulus_laplace [--port 8060] [--device cuda]
+          [--problem annulus_laplace] [--port 8060] [--device cuda]
 
 API:
     POST /predict   {"points": [[r, t], ...]}      -> {"u": [...]}
@@ -32,9 +32,17 @@ window.  The composite hides the window nets from
 ``taylor.fast_partials``, so its ``/residual`` takes the generic jvp
 engine.
 
+A coupled-system checkpoint (core.system.run_system) describes itself:
+its meta carries the equations, fields, coordinates, box and feature
+kinds, so it is served with no preset (``problem_name=None``).  Any
+unknown coefficients it identified enter the residual at their recovered
+values.  ``/predict`` answers one row of m fields per point and
+``/residual`` one row of E equation columns, through the generic jvp
+engine (kernel B1 is scalar).
+
 Not ported yet, and refused with NotImplementedError rather than served
-wrong: ensembles (``ensemble.json``), patch, coupled-system and inverse
-checkpoints.  ROADMAP.md Queue A items 13 and 15 bring them.
+wrong: ensembles (``ensemble.json``), patch and scalar inverse
+checkpoints.  ROADMAP.md Queue A items 13c and 13d bring them.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ import json
 import sys
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
@@ -63,6 +72,17 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
+def _described_system(meta: dict) -> SimpleNamespace:
+    """The problem record of a self-describing system checkpoint."""
+    coords = tuple(meta["coords"])
+    return SimpleNamespace(
+        name=meta.get("problem", "checkpoint"), coords=coords,
+        dim=len(coords), equation="; ".join(meta["system"]["equations"]),
+        feature_kinds=tuple(meta.get("feature_kinds") or ()),
+        lb=tuple(meta["lb"]), ub=tuple(meta["ub"]), source=None,
+        bc_groups=())
+
+
 def _refuse(what: str, item: str):
     raise NotImplementedError(
         f"{what} checkpoints are not served by tpinn_torch yet (ROADMAP.md "
@@ -78,7 +98,7 @@ class PINNServer:
         cpath = Path(checkpoint)
         if cpath.name == "ensemble.json" or (
                 cpath.is_dir() and (cpath / "ensemble.json").exists()):
-            _refuse("ensemble", "13")
+            _refuse("ensemble", "13d")
         if cpath.is_dir() and (cpath / "march.json").exists():
             cpath = cpath / "march.json"
         if cpath.name == "march.json":
@@ -90,19 +110,38 @@ class PINNServer:
                     if "__meta__" in raw else {})
             w_shapes = [raw[k].shape for k in sorted(raw.files)
                         if k.endswith("/w")]
-        if meta.get("system"):
-            _refuse("coupled-system", "13")
-        if meta.get("inverse") or meta.get("coef"):
-            _refuse("inverse", "13")
+        sysm = meta.get("system")
+        coefm = meta.get("coef") or {}
+        # a system checkpoint may carry identified coefficients; a scalar
+        # one that does is an inverse checkpoint
+        if not sysm and (meta.get("inverse") or coefm):
+            _refuse("inverse", "13c")
         if meta.get("patch"):
-            _refuse("patch", "13")
-        if problem_name is None:
+            _refuse("patch", "13d")
+        if problem_name is not None:
+            problem = problems.get_problem(problem_name)
+        elif sysm and "coords" in meta and "lb" in meta:
+            problem = _described_system(meta)
+        else:
             raise ValueError(
-                "--problem is required: forward checkpoints do not describe "
-                "their own equation")
-        problem = problems.get_problem(problem_name)
+                "--problem is required: this checkpoint's meta does not "
+                "describe its own domain and equations")
         self.problem = problem
-        self.compiled = pde.compile_pde(problem.equation, problem.coords)
+        self._coef = None
+        if sysm:
+            if deflate != "off":
+                raise ValueError(
+                    "--deflate targets scalar forward checkpoints; system "
+                    "checkpoints have no spectral correction path")
+            # one residual column per equation, coefficients at their
+            # recovered values
+            self.compiled = pde.compile_system(
+                sysm["equations"], tuple(meta.get("coords", problem.coords)),
+                sysm["fields"], params=tuple(coefm))
+            self._coef = {k: torch.tensor(float(v), device=self.device)
+                          for k, v in coefm.items()} or None
+        else:
+            self.compiled = pde.compile_pde(problem.equation, problem.coords)
 
         dev = self.device
         fm = net.feature_map_for(
@@ -203,6 +242,9 @@ class PINNServer:
         return self.predictor(self.params, z)
 
     def _residual(self, z: torch.Tensor) -> torch.Tensor:
+        if isinstance(self.compiled, pde.CompiledSystem):
+            return self.compiled.residual(
+                lambda zz: self.predictor(self.params, zz), z, self._coef)
         return self.compiled.residual_fast(self.predictor, self.params, z)
 
     @staticmethod
@@ -226,6 +268,10 @@ class PINNServer:
         padded[n:] = pts[-1] if n else 0.5
         z = torch.from_numpy(padded).to(self.device)
         out = fn(z).detach().cpu().numpy()[:n]
+        if out.shape[1] > 1:
+            # coupled systems: one row per point (fields for /predict,
+            # equation columns for /residual)
+            return out.tolist()
         return out[:, 0].tolist()
 
     def predict(self, points):
@@ -277,7 +323,9 @@ def main():  # pragma: no cover
     p = argparse.ArgumentParser(description="serve a trained tpinn model "
                                             "with the PyTorch port")
     p.add_argument("--checkpoint", required=True)
-    p.add_argument("--problem", required=True, help="problem preset")
+    p.add_argument("--problem", default=None,
+                   help="problem preset (optional for a system checkpoint, "
+                        "whose meta describes it)")
     p.add_argument("--port", type=int, default=8060)
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' fails without a card")
@@ -293,7 +341,8 @@ def main():  # pragma: no cover
     server = PINNServer(args.checkpoint, args.problem, deflate=args.deflate,
                         device=args.device)
     httpd = ThreadingHTTPServer(("0.0.0.0", args.port), make_handler(server))
-    print(f"serving {args.problem} on :{args.port} ({server.device})")
+    print(f"serving {server.problem.name} on :{args.port} "
+          f"({server.device})")
     httpd.serve_forever()
 
 

@@ -41,7 +41,8 @@ from tpinn_torch.core import pde, sample
 from tpinn_torch.core.train import (ProblemSpec, TrainResult, TrainSpec,
                                     _residual_with_source,
                                     _write_stage_artifacts, eval_grid,
-                                    resolve_testing_size, run_training)
+                                    resolve_device, resolve_testing_size,
+                                    run_training)
 from tpinn_torch.utils import artifacts
 
 Tensor = torch.Tensor
@@ -202,10 +203,7 @@ def run_time_marching(
             f"time marching supports order <= 2 along the march axis; "
             f"{problem.name} is order {axis_order} in {axis!r}")
     handoff_velocity = axis_order == 2
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but "
-                           "torch.cuda.is_available() is False")
+    dev = resolve_device(device)
 
     def log(msg):
         if log_fn is not None:

@@ -8,8 +8,11 @@ come from the generic ``torch.func.jvp`` engine (``residual``) or from the
 structure-aware dispatcher (``residual_fast``, tpinn_torch.core.taylor),
 which sends plain dense nets to kernel B1.
 
-``compile_system`` (coupled multi-field systems) is not ported yet
-(ROADMAP.md Queue A item 13).
+``compile_system`` compiles a coupled system: several equations over
+several solution fields of one multi-output net.  Kernel B1 is scalar
+(``out_dim`` 1), so a system's residual always takes the generic engine:
+one ``deriv.partials`` call over the union of the equations'
+multi-indices gives every field's partials from the same tangent passes.
 """
 
 from __future__ import annotations
@@ -545,6 +548,98 @@ def validate_equation(
         return False
 
 
+# ---------------------------------------------------------------------------
+# Coupled systems: several equations over several solution fields, one
+# multi-output network.  `fields=("u", "v")` makes u, v, u_x, v_xy…
+# legal identifiers and the compiled residual stacks one column per
+# equation.
+# ---------------------------------------------------------------------------
+
+
+def _column(val: Tensor, z: Tensor) -> Tensor:
+    """An evaluated expression as an ``[N, 1]`` column on ``z``'s device."""
+    if val.device != z.device:  # a constant expression: a CPU literal
+        return torch.full((z.shape[0], 1), val.item(), dtype=z.dtype,
+                          device=z.device)
+    return torch.broadcast_to(val, (z.shape[0], 1))
+
+
+@dataclass(frozen=True)
+class CompiledSystem:
+    """Compiled equation system: ``residual(f, z[, coef]) -> [N, n_eq]``.
+
+    ``f`` is the stacked predictor ``z -> [N, len(fields)]``; ``indices``
+    is the union of derivative multi-indices over all equations (each
+    computed once for all fields)."""
+
+    equations: Tuple[str, ...]
+    coords: Tuple[str, ...]
+    fields: Tuple[str, ...]
+    asts: Tuple[Node, ...]
+    indices: frozenset
+    param_names: Tuple[str, ...] = ()
+
+    @property
+    def n_eq(self) -> int:
+        return len(self.asts)
+
+    @property
+    def max_order(self) -> int:
+        return max((len(ix) for ix in self.indices), default=0)
+
+    @property
+    def is_linear(self) -> bool:
+        return all(is_linear_in_u(a) for a in self.asts)
+
+    def residual(
+        self,
+        f: Callable[[Tensor], Tensor],
+        z: Tensor,
+        coef: Optional[Dict[str, Tensor]] = None,
+    ) -> Tensor:
+        parts = deriv.partials(f, z, self.indices)
+        return self.evaluate(z, parts, coef)
+
+    def evaluate(
+        self,
+        z: Tensor,
+        u_parts: Dict[MultiIndex, Tensor],
+        coef: Optional[Dict[str, Tensor]] = None,
+    ) -> Tensor:
+        return torch.cat([_column(_evaluate(a, z, u_parts, coef), z)
+                          for a in self.asts], dim=1)
+
+    def __call__(self, f, z, coef=None):
+        return self.residual(f, z, coef)
+
+
+def compile_system(
+    equations: Sequence[str],
+    coords: Sequence[str],
+    fields: Sequence[str],
+    params: Sequence[str] = (),
+) -> CompiledSystem:
+    """Compile a coupled system over named coordinates and solution fields.
+
+    >>> sys = compile_system(["u_x - v", "v_x + pi**2*u"], ("x",), ("u", "v"))
+    >>> f_sys = sys.residual(f_uv, z)    # [N, 2] residual columns
+    """
+    if not equations:
+        raise PDESyntaxError("a system needs at least one equation")
+    if len(set(fields)) != len(fields):
+        raise PDESyntaxError(f"duplicate field names in {tuple(fields)}")
+    asts = tuple(parse(e, coords, params, fields) for e in equations)
+    indices = frozenset().union(*(collect_indices(a) for a in asts))
+    return CompiledSystem(
+        equations=tuple(equations),
+        coords=tuple(coords),
+        fields=tuple(fields),
+        asts=asts,
+        indices=indices,
+        param_names=tuple(params),
+    )
+
+
 def compile_coord_expr(expr: str, coords: Sequence[str]) -> Callable[[Tensor], Tensor]:
     """Compile an expression of the coordinates into ``g(z) -> [N, 1]``."""
     ast = parse(expr, coords)
@@ -552,10 +647,6 @@ def compile_coord_expr(expr: str, coords: Sequence[str]) -> Callable[[Tensor], T
         raise PDESyntaxError(f"expression {expr!r} must not reference u")
 
     def g(z: Tensor) -> Tensor:
-        val = _evaluate(ast, z, {})
-        if val.device != z.device:  # a constant expression: a CPU literal
-            return torch.full((z.shape[0], 1), val.item(), dtype=z.dtype,
-                              device=z.device)
-        return torch.broadcast_to(val, (z.shape[0], 1)).to(z.dtype)
+        return _column(_evaluate(ast, z, {}), z).to(z.dtype)
 
     return g

@@ -316,6 +316,16 @@ def adam_matmul_precision(name):
         torch.backends.cuda.matmul.allow_tf32 = before
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; "cuda" without a card raises (the port
+    never falls back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but "
+                           "torch.cuda.is_available() is False")
+    return dev
+
+
 def _check_supported(spec: TrainSpec, mesh) -> None:
     def later(what, item):
         raise NotImplementedError(
@@ -367,10 +377,7 @@ def run_training(
     _check_supported(spec, mesh)
     if not spec.stages:
         spec = spec.with_default_stages()
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but "
-                           "torch.cuda.is_available() is False")
+    dev = resolve_device(device)
     dtype = _DTYPES[spec.dtype]
 
     out = Path(output_dir) if output_dir else None

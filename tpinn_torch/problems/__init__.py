@@ -15,9 +15,9 @@ two computed on the host in float64: ``burgers_shock``'s quadrature and
 ``allen_cahn``'s spectral reference solve (problems.oracles).  Building a
 preset does no device work.  ``convection_1d``, ``wave_1d`` and
 ``allen_cahn`` train by time marching (``Recipe.march``,
-core.march.run_time_marching).
-
-Not ported: the coupled-system presets (ROADMAP.md Queue A item 13b).
+core.march.run_time_marching).  The coupled-system presets
+(``SYSTEM_PRESETS``, ``get_system``, ``SYSTEM_RECIPES``) are in
+problems.systems and train through core.system.run_system.
 """
 
 from __future__ import annotations
@@ -32,8 +32,10 @@ import torch
 from tpinn_torch.core import net, pde, sample
 from tpinn_torch.core.train import ProblemSpec
 from tpinn_torch.problems.recipes import RECIPES, Recipe
+from tpinn_torch.problems.systems import SYSTEM_PRESETS, get_system
 
-__all__ = ["PRESETS", "HARD_BC", "RECIPES", "Recipe", "get_problem",
+__all__ = ["PRESETS", "HARD_BC", "RECIPES", "Recipe", "SYSTEM_PRESETS",
+           "get_system", "get_problem",
            "get_recipe", "with_hard_bc", "annulus_laplace", "poisson_1d",
            "burgers_1d", "burgers_shock", "poisson_2d", "heat_2d",
            "helmholtz_2d", "poisson_3d", "convection_1d", "lshape_laplace",
