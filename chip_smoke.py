@@ -20,8 +20,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
       (7,200) and its L-BFGS grid (24^3 = 13,824), and the marching
       windows' 4x64 tanh nets (convection_1d: S = 3, wave_1d: S = 5), in
       the first and the last window's slab, at the batch a step (5,632 and
-      7,168 points) and at the density grid (101^2, 111^2); then, in the other W
-      modes of its plan, heat_2d's 6x96 at its batch (28,000) and a 6x128
+      7,168 points) and at the density grid (101^2, 111^2), and the
+      inverse path's 4x32 tanh net on 3 padded features (heat_2d's
+      "u_t - lam*u_xx", S = 4, at its batch of 2,800 points, its density
+      grid of 111^2 and the served tier of 1,024; poisson_1d's "u_xx +
+      lam*u", S = 3, at 2,700 and 111); then, in the other W modes of its
+      plan, heat_2d's 6x96 at its batch (28,000) and a 6x128
       at 16,384 ("layer"), a 3x256 at 4,096 ("layer", W in chunks) and a
       3x700 net with 3 coordinates, S = 10, at 2,048 ("l1").  Each case
       prints B1's plan (points per tile, blocks, threads, W mode, rows of
@@ -34,7 +38,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
       annulus net at the recipe's batch (46,000), a ragged 1,077 and the
       recipe's L-BFGS grid (450^2 = 202,500), the pad_to=3 net, the
       3-coordinate net, the poisson_3d net at its two sizes and the
-      marching windows' nets at their batch; the same
+      marching windows' and the inverse cases' nets at their batch; the
+      same
       under the hard-BC product rule at those sizes, the 3-D product rule
       of poisson_3d included; points that require a gradient must be
       refused.  Each case prints B2's plan (points per tile, blocks, rows
@@ -51,7 +56,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
       marching windows' 4x64 net on 3 features) and the system path's
       vectors (17,091: kovasznay's and taylor_green's 5x64 nets with 3
       outputs; 37,826: schrodinger's 5x96 with 2; 1 and the other leaves
-      of phase 5f's inverse case under the tree layout), each on aligned
+      of phase 5f's inverse case under the tree layout) and the inverse
+      path's (3,330: the 4x32 net and lam raveled; 96, 1,024, 32 and 1:
+      its leaves under the tree layout), each on aligned
       vectors and on views one float off 16-byte alignment: through the
       Adam phase's launcher (FusedAdam, the step and the bias corrections
       read on the device) and through adam_update_flat, which must agree
@@ -154,6 +161,31 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (u_x - v, v_x + w2*u) under adam_layout="tree", its 1-element
    coefficient vector through B3 on the card, w2 recovered within 1e-2
    and printed.
+5g. Scalar inverse (the inverse slice's path): first, at the heat case's
+   batch, the gradient of the inverse loss through B1/B2 against the same
+   loss through the generic engine, every net leaf and lam (the
+   tolerances of phase 5's step 0).  Then `tpinn invert`'s heat-
+   diffusivity identification (heat_2d with "u_t - lam*u_xx" from lam =
+   0.3), built as tpinn's CLI builds it (invert_spec: 4x32 tanh, 2,000 +
+   500 points and 100 per BC group a step, 200 observations, seed 1234),
+   through run_inverse on the card with the budgets cut (INVERSE_CASES:
+   300 / 150 against the CLI's 4,000 / 3,000; tail_max 20, density_every
+   100, plateau_every 200): launch counts reset before and read after (B1
+   and B2 at least once per Adam step, B3 once, through the launcher, on
+   the 3,330-float vector of the net and lam), the loss drops, |lam - 1|
+   below |0.3 - 1|, the checkpoint, inverse.json and the UI artifacts
+   written; the checkpoint served on the card with no preset: /health's
+   coef equal to inverse.json's, /predict within 1e-6 of the trainer's at
+   1,000 points, /residual through B1 (its count grows) against the
+   trainer's residual at the recovered lam through the generic engine.
+   The same under adam_layout="tree" (B3 once per step on each of 11
+   vectors, lam's of 1 among them).  The eigenvalue mode: poisson_1d with
+   "u_xx + lam*u" from lam = 8, normalize 0.5, at 1,000 / 600 (B1, B2,
+   B3; lam moves toward pi^2; mean u^2 on the pin points printed beside
+   0.5).  Every B1 and B2 launch of the phase at a shape phases 3a and 3b
+   hold, every B3 vector at a size 3c holds; the heat case's first 50
+   Adam steps run twice, one loss-history digest equal to the main run's
+   first rows.
 6. Timing (medians of synchronised runs): B1 inside the residual at the
    serving shapes; B1 alone against its plain version at the served
    262,144 points, the recipe's batch and L-BFGS grid (46,000, 202,500)
@@ -171,7 +203,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    a long kernel, and device time a launch replayed from a CUDA graph;
    the kovasznay Adam step at the recipe's width and batch (the generic
    engine; B3 against its plain version) and /residual of phase 5f's
-   kovasznay checkpoint at 65,536 points.
+   kovasznay checkpoint at 65,536 points; the heat inverse Adam step at
+   the CLI's width and batch, its residual through B1/B2 against the
+   generic engine (B3 in both).
 
 Partial runs, for work on kernels B1, B2 and B3 and on one path (not part
 of the smoke):
@@ -188,6 +222,8 @@ of the smoke):
     python3 chip_smoke.py --march-only         # phases 2 and 5e
     python3 chip_smoke.py --system-only        # phases 2, 3c, 5f, system timing
     python3 chip_smoke.py --system-recipe NAME # one system recipe as written
+    python3 chip_smoke.py --inverse-only       # phases 2, 3a-3c, 5g, its timing
+    python3 chip_smoke.py --inverse-recipe     # the heat run as `tpinn invert`
     python3 chip_smoke.py --determinism [DIR]  # warned ops of 5c's training
 
 The compares time the kernel at phase 6's shapes in DIR (say a git
@@ -210,10 +246,15 @@ per tree, and where a run's history parts from DIR's first run.
 under torch.use_deterministic_algorithms(True, warn_only=True) with
 CUBLAS_WORKSPACE_CONFIG=:4096:8 in that process only, and lists every
 operation PyTorch warned about with the line of Python that called it.
+--inverse-recipe runs phase 5g's heat identification with the CLI's
+budgets (4,000 / 3,000) and TrainSpec's cadences, prints an
+INVERSE_RECIPE line (lam, coef_adam, rel-L2, wall time, launches) and
+fails unless |lam - 1| < 1e-2 (the bar of tests/test_inverse.py).
 
 The line before the last is a JSON object describing the kernels (each
-with its launches on the two newest main paths, phase 5e's three
-marching recipes and phase 5f's coupled systems together, and on every
+with its launches on the three newest main paths, phase 5e's three
+marching recipes, phase 5f's coupled systems and phase 5g's inverse
+runs together, and on every
 path by name, its time, its plain version's, the card's bound for the
 same work and, where one PyTorch call computes the same function, that
 call's time; B1 and B2 with every timed shape and its plan under
@@ -316,6 +357,23 @@ SYSTEM_CUTS = {"kovasznay": (300, 150), "taylor_green": (100, 60),
                "schrodinger": (100, 60)}
 SYSTEM_CADENCE = MARCH_CADENCE
 SYSTEM_REPEAT = 50  # Adam steps of kovasznay's training run twice
+# phase 5g: `tpinn invert`'s heat-diffusivity identification and its
+# eigenvalue mode (preset, equation, coefficient and its start, normalize,
+# budgets), built into an InverseSpec and a TrainSpec as tpinn's `invert`
+# builds them (invert_spec) at the CLI's width and batch: 4x32 tanh, 2,000
+# + 500 points and 100 per BC group a step, 200 observations.  The budgets
+# are cut from the CLI's 4,000 / 3,000, the cadences as in phase 5e.  The
+# eigen case needs more than the heat case: at 300 / 150 its net sits at
+# the trivial u = 0 (the saddle of the mean-square pin) after Adam, and 50
+# L-BFGS iterations do not leave it (lam stays at 7.98; CPU runs)
+INVERSE_CASES = {
+    "heat": ("heat_2d", "u_t - lam*u_xx", {"lam": 0.3}, 0.0, (300, 150)),
+    "eigen": ("poisson_1d", "u_xx + lam*u", {"lam": 8.0}, 0.5, (1000, 600)),
+}
+INVERSE_CADENCE = MARCH_CADENCE
+INVERSE_REPEAT = 50  # Adam steps of the heat case run twice
+INVERSE_SERVE_N = 1_000  # points a served request (B1 at the 1,024 tier)
+INVERSE_BAR = 1e-2  # |lam - 1| of --inverse-recipe (tests/test_inverse.py)
 SERVE_RTOL, SERVE_ATOL = 1e-5, 1e-6  # served /predict vs the trainer's
 QUEUED = 100        # back-to-back launches timed behind a long kernel
 # B3 past one grid of 132 SMs x 4 blocks x 256 threads: its threads loop
@@ -523,8 +581,9 @@ def phase_kernel_vs_plain(dev, gen):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     worst_abs = 0.0
     modes, chunked = set(), False
-    march = [case[:-1] for case in march_kernel_cases()]
-    for name, spec, fm, lo, hi, streams, n in (kernel_cases() + march
+    paths = [case[:-1] for case in march_kernel_cases()
+             + inverse_kernel_cases()]
+    for name, spec, fm, lo, hi, streams, n in (kernel_cases() + paths
                                                + b1_mode_cases()):
         dims = [fm.num_features] + [spec.width] * spec.depth + [1]
         plan = mlp_taylor.tiling(dims, len(streams), n, sms)
@@ -618,10 +677,11 @@ def phase_b2(dev, gen):
                   net.MLPSpec(depth=3, width=256),
                   net.feature_map_for(("minmax", "periodic")), (0.1, 0.0),
                   (1.0, 2 * math.pi), IDX5))
-    # the marching windows at their batch (phase 5e's B2 launches)
+    # the marching windows and the inverse cases' net at their batch
+    # (phases 5e's and 5g's B2 launches)
     cases += [(n, name, spec, fm, lo, hi, streams) for
               name, spec, fm, lo, hi, streams, n, backward in
-              march_kernel_cases() if backward]
+              march_kernel_cases() + inverse_kernel_cases() if backward]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     lib = _build.load("taylor2_bwd")
     lib.tpinn_taylor2_bwd_smem.restype = ctypes.c_longlong
@@ -807,6 +867,103 @@ def system_adam_sizes():
     return sorted(sizes)
 
 
+def invert_spec(name, adam_epochs=None, lbfgs_epochs=None, **spec_kw):
+    """INVERSE_CASES[name] as tpinn's CLI builds it (`tpinn invert
+    --problem P --equation E --param lam=INIT [--normalize N]`,
+    tpinn/cli.py:173-214): the preset with its equation replaced (in eigen
+    mode its oracle dropped: it solves the original equation), and the
+    CLI's defaults: 4x32, scl = epsil = 1, n_col 2,000, n_band 0,
+    n_adaptive 500, n_bd 100, n_obs 200, lw (1, 0), seed 1234,
+    pad_features 3, adam 4,000, lbfgs 3,000; the budgets replaced where
+    given, and the TrainSpec fields of spec_kw.  Returns (problem,
+    InverseSpec, TrainSpec)."""
+    import dataclasses
+
+    from tpinn_torch import problems
+    from tpinn_torch.core.inverse import InverseSpec
+    from tpinn_torch.core.train import StageSpec, TrainSpec
+
+    preset, equation, coef, normalize, _ = INVERSE_CASES[name]
+    problem = dataclasses.replace(problems.get_problem(preset),
+                                  equation=equation)
+    if normalize > 0:
+        problem = dataclasses.replace(problem, exact=None)
+    inv = InverseSpec(params=tuple(coef), init=tuple(coef.values()),
+                      n_obs=200, normalize=normalize)
+    spec = TrainSpec(
+        n_col=2000, n_band=0, n_adaptive=500, n_bd=100, lw=(1.0, 0.0),
+        seed=1234, pad_features=3,
+        stages=(StageSpec(
+            depth=4, width=32, scl=1.0, epsil=1.0,
+            adam_epochs=4000 if adam_epochs is None else adam_epochs,
+            lbfgs_epochs=3000 if lbfgs_epochs is None else lbfgs_epochs),))
+    return problem, inv, dataclasses.replace(spec, **spec_kw)
+
+
+def inverse_net(problem, spec):
+    """(MLPSpec, feature map) of invert_spec's net for ``problem``."""
+    from tpinn_torch.core import net
+
+    st = spec.stages[0]
+    return (net.MLPSpec(depth=st.depth, width=st.width, scl=st.scl,
+                        epsil=st.epsil),
+            net.feature_map_for(problem.feature_kinds,
+                                pad_to=spec.pad_features))
+
+
+def inverse_kernel_cases():
+    """(name, spec, fm, lb, ub, streams, N, backward) of phases 3a and 3b
+    for the inverse path (phase 5g): the CLI's 4x32 net on 3 padded
+    features in both cases, with the stream plan of the equation, at the
+    batch a step (n_col + n_adaptive + n_bd per BC group: B1 and B2, the
+    step-0 check, every Adam step and L-BFGS evaluation), at the density
+    grid (grid^d points: B1, the refresh; in 2-D also the artifacts'
+    residual on the 111^2 test grid) and, for the served heat checkpoint,
+    at the tier of INVERSE_SERVE_N points (B1, /residual)."""
+    from tpinn_torch.app.serve import PINNServer
+    from tpinn_torch.core import pde, taylor
+
+    cases = []
+    for name in INVERSE_CASES:
+        problem, inv, spec = invert_spec(name)
+        mspec, fm = inverse_net(problem, spec)
+        compiled = pde.compile_pde(problem.equation, problem.coords,
+                                   inv.params)
+        streams = taylor.plan_streams(compiled.indices)
+        batch = (spec.n_col + spec.n_band + spec.n_adaptive
+                 + spec.n_bd * len(problem.bc_groups))
+        sizes = [(batch, "the batch", True),
+                 (spec.grid ** problem.dim, "the density grid", False)]
+        if name == "heat":
+            sizes.append((PINNServer._tier(INVERSE_SERVE_N),
+                          "the served tier", False))
+        for n, what, backward in sizes:
+            cases.append((f"inverse {name} ({problem.name}) {mspec.depth}x"
+                          f"{mspec.width} tanh, {what}", mspec, fm,
+                          problem.lb, problem.ub, streams, n, backward))
+    return cases
+
+
+def inverse_adam_sizes():
+    """The vectors B3 updates on the inverse path: the net and its
+    coefficient raveled together (the flat layout: 3,330 for the 4x32 net
+    on 3 features) and, under the tree layout, each net leaf and the
+    coefficient's 1-element vector.  Phase 3c holds them."""
+    import torch
+
+    from tpinn_torch.core import net
+
+    sizes = set()
+    for name in INVERSE_CASES:
+        problem, inv, spec = invert_spec(name)
+        mspec, fm = inverse_net(problem, spec)
+        leaves = [t.numel() for t in leaves_of(net.init_params(
+            torch.Generator().manual_seed(SEED), mspec, fm, "cpu"))]
+        leaves += [1] * len(inv.params)
+        sizes.update([sum(leaves), *leaves])
+    return sorted(sizes)
+
+
 def at_offset(x, offset):
     """A copy of the 1-D ``x`` as a view ``offset`` elements into a buffer
     of its own: at offset 1 a float32 vector sits 4 bytes off 16-byte
@@ -823,17 +980,19 @@ def phase_b3(dev):
     the midpoint, through the Adam phase's launcher (FusedAdam, the step
     counted on the device) and through adam_update_flat side by side, at
     n = ADAM_N, 1,001 (one element a thread), LOOP_N (the threads loop),
-    the marching windows' parameter count and the system path's vectors
-    (system_adam_sizes: 17,091, 37,826, 1 and the inverse case's leaves),
-    on aligned vectors and on views one float off alignment; then the
-    graph check."""
+    the marching windows' parameter count, the system path's vectors
+    (system_adam_sizes: 17,091, 37,826, 1 and the inverse case's leaves)
+    and the inverse path's (inverse_adam_sizes: 3,330 and the leaves), on
+    aligned vectors and on views one float off alignment; then the graph
+    check."""
     import torch
 
     from tpinn_torch.kernels import adam
 
     worst_abs = 0.0
-    for n in (ADAM_N, 1_001, LOOP_N, *march_adam_sizes(),
-              *system_adam_sizes()):
+    sizes = {*march_adam_sizes(), *system_adam_sizes(),
+             *inverse_adam_sizes()} - {ADAM_N, 1_001, LOOP_N}
+    for n in (ADAM_N, 1_001, LOOP_N, *sorted(sizes)):
         for offset in (0, 1):
             gen = torch.Generator(device=dev).manual_seed(SEED)
             p0 = torch.randn(n, generator=gen, device=dev)
@@ -1817,17 +1976,29 @@ def kernel_shapes():
         mlp_taylor._launch, taylor_vjp._launch = fwd, bwd
 
 
-def march_held_shapes() -> set:
+def held_shapes(cases) -> set:
     """The (kernel, layer widths, streams, N) that phases 3a and 3b hold
-    against the plain versions for the marching path."""
+    against the plain versions for a path's ``cases`` (march_kernel_cases,
+    inverse_kernel_cases)."""
     held = set()
-    for _, spec, fm, _, _, streams, n, backward in march_kernel_cases():
+    for _, spec, fm, _, _, streams, n, backward in cases:
         key = ((fm.num_features, *[spec.width] * spec.depth, 1),
                tuple(map(tuple, streams)), n)
         held.add(("taylor2_fwd", *key))
         if backward:
             held.add(("taylor2_bwd", *key))
     return held
+
+
+def check_held(what, shapes, held):
+    """Every B1/B2 launch at a shape phases 3a and 3b hold."""
+    stray = sorted(set(shapes) - held)
+    check(not stray, f"{what}: B1/B2 launched at shapes phases 3a and 3b "
+                     f"do not hold: {stray}")
+    for (k, dims, streams, n), c in sorted(shapes.items()):
+        print(f"  {what}: {k} at N={n}, widths {list(dims)}, streams "
+              f"{list(streams)}: {c} launches (held in phase "
+              f"{'3a' if k == 'taylor2_fwd' else '3b'})")
 
 
 def history_digest(h) -> str:
@@ -1916,7 +2087,7 @@ def phase_march(dev, card):
     from tpinn_torch.kernels import mlp_taylor
 
     by_path = {}
-    held = march_held_shapes()
+    held = held_shapes(march_kernel_cases())
     for name, budget in MARCH_CUTS.items():
         rec = problems.RECIPES[name]
         problem, spec = problems.get_recipe(name)
@@ -1937,13 +2108,7 @@ def phase_march(dev, card):
             check(sum(c for key, c in shapes.items() if key[0] == k)
                   == launches[k], f"{name}: {k} shapes recorded for "
                                   f"{launches[k]} launches")
-        stray = sorted(set(shapes) - held)
-        check(not stray, f"{name}: B1/B2 launched at shapes phases 3a and "
-                         f"3b do not hold: {stray}")
-        for (k, dims, streams, n), c in sorted(shapes.items()):
-            print(f"  {name}: {k} at N={n}, widths {list(dims)}, streams "
-                  f"{list(streams)}: {c} launches (held in phase "
-                  f"{'3a' if k == 'taylor2_fwd' else '3b'})")
+        check_held(name, shapes, held)
         sizes = sorted({x.p.numel() for x in vectors})
         check(len(vectors) == len(n_adam)
               and set(sizes) <= set(march_adam_sizes()),
@@ -2317,6 +2482,396 @@ def system_recipe(name) -> None:
     phase_system(dev, card, cuts={name: (None, None)}, repeat=False,
                  inverse=False, tail_max=4000, density_every=2000,
                  plateau_every=4000)
+
+
+def inverse_loss_setup(dev):
+    """The heat case's inverse loss at its batch, as run_inverse builds it
+    (invert_spec's net and equation, the synthesized observations, one
+    draw of the sampler): returns (loss of a predictor, the kernel
+    predictor, its generic twin, a fresh joint tree at the start values,
+    data, lw).  The twin has no structured partials, so its residual takes
+    the generic engine (deriv.partials) and autograd."""
+    import torch
+
+    from tpinn_torch.core import net, pde, sample
+    from tpinn_torch.core.inverse import (make_inverse_loss,
+                                          synth_observations)
+
+    problem, inv, spec = invert_spec("heat")
+    mspec, fm = inverse_net(problem, spec)
+    lb = torch.tensor(problem.lb, device=dev)
+    ub = torch.tensor(problem.ub, device=dev)
+    pred = net.make_predictor(mspec, fm, lb, ub)
+    compiled = pde.compile_pde(problem.equation, problem.coords, inv.params)
+    z_obs, u_obs = synth_observations(problem, inv, torch.float32, dev)
+    sample_fn, grids = sample.sampler_for(
+        sample.SamplerConfig(n_col=spec.n_col, n_band=spec.n_band,
+                             n_adaptive=spec.n_adaptive, n_bd=spec.n_bd,
+                             grid=spec.grid),
+        problem.bc_groups, problem.lb, problem.ub, torch.float32, dev)
+    data = sample_fn(torch.Generator(device=dev).manual_seed(SEED),
+                     torch.ones_like(grids[0]))
+    lw = torch.tensor(spec.lw, device=dev)
+
+    def loss_of(p):
+        return make_inverse_loss(p, compiled, z_obs, u_obs)
+
+    def tree():
+        return {"net": net.init_params(torch.Generator().manual_seed(SEED),
+                                       mspec, fm, dev),
+                "coef": {n: torch.tensor(v, device=dev)
+                         for n, v in zip(inv.params, inv.init)}}
+
+    return loss_of, pred, (lambda p, z: pred(p, z)), tree, data, lw
+
+
+def inverse_step0(dev):
+    """The heat case's inverse-loss gradient at its batch through B1/B2
+    against the same loss through the generic engine, every net leaf and
+    lam (STEP0_RTOL, STEP0_ATOL).  Returns the largest difference."""
+    import torch
+
+    loss_of, pred, generic, tree, data, lw = inverse_loss_setup(dev)
+
+    def grads(p, ref=None):
+        joint = tree()
+        leaves = [t.requires_grad_(True) for t in leaves_of(joint["net"])]
+        leaves += [t.requires_grad_(True) for t in joint["coef"].values()]
+        loss_fn = loss_of(p)
+        if ref is None:
+            with torch.no_grad():
+                ref = loss_fn(joint, data, lw,
+                              torch.ones((), device=dev))[1][0]
+        loss_n, _ = loss_fn(joint, data, lw, ref)
+        return torch.autograd.grad(loss_n, leaves), ref
+
+    before = read_launches()
+    got, ref = grads(pred)
+    generic_grads, _ = grads(generic, ref)
+    torch.cuda.synchronize()
+    grew = {k: v - before[k] for k, v in read_launches().items()}
+    check(grew["taylor2_fwd"] >= 1 and grew["taylor2_bwd"] == 1,
+          f"inverse step 0: launches {grew}")
+    err = check_grads("inverse step-0 gradient, kernel vs generic engine",
+                      got, generic_grads, STEP0_RTOL, STEP0_ATOL)
+    n = data["x_col"].shape[0]
+    print(f"  step-0 gradient of the heat inverse loss (N={n}, "
+          f"{len(got) - 1} net leaves and lam): kernel vs generic engine max "
+          f"abs err {err:.3e} (rtol {STEP0_RTOL}, atol {STEP0_ATOL}); d/dlam "
+          f"{float(got[-1]):.6e} against {float(generic_grads[-1]):.6e}; "
+          f"launches {grew}")
+    return err
+
+
+def run_inverse_counted(problem, inv, spec, dev, out=None):
+    """run_inverse on the card, its checkpoint, record and artifacts under
+    ``out`` (when given), the launch counts reset before and read after,
+    every B3 launcher and the shape of every B1 and B2 launch recorded.
+    Returns (result, log lines, launches, Adam steps, launchers built,
+    shapes, seconds)."""
+    import torch
+
+    from tpinn_torch.core.inverse import run_inverse
+
+    if out is not None:
+        shutil.rmtree(out, ignore_errors=True)
+    lines = []
+    reset_launches()
+    t0 = time.perf_counter()
+    with adam_launchers() as built, kernel_shapes() as shapes:
+        res = run_inverse(problem, inv, spec,
+                          output_dir=None if out is None else str(out),
+                          log_fn=lines.append, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    for line in lines:
+        print(f"  | {line}")
+    n_adam = [int(m.group(1)) for m in
+              (re.search(r"Adam done \((\d+) steps", ln) for ln in lines) if m]
+    st = spec.stages[0]
+    check(len(n_adam) == 1 and n_adam[0] >= st.adam_epochs,
+          f"{problem.name}: Adam phases logged {n_adam} for "
+          f"{st.adam_epochs} steps")
+    for k in ("taylor2_fwd", "taylor2_bwd"):
+        check(sum(c for key, c in shapes.items() if key[0] == k)
+              == launches[k], f"{problem.name}: {k} shapes recorded for "
+                              f"{launches[k]} launches")
+        check(launches[k] >= n_adam[0],
+              f"{problem.name}: {k} launched {launches[k]} times over "
+              f"{n_adam[0]} Adam steps")
+    return res, lines, launches, n_adam[0], built, shapes, seconds
+
+
+def check_served_inverse(problem, inv, res, out, dev, card):
+    """The heat checkpoint served by PINNServer on the card with no
+    preset: /health's coef equal to inverse.json's, /predict within
+    MARCH_TOL of the trainer's predictor, /residual through B1 (its count
+    grows) against the trainer's predictor's residual at the recovered
+    coefficient through the generic engine (RES_RTOL, RES_ATOL).  Returns
+    the shapes of the B1 launches it made."""
+    import numpy as np
+    import torch
+
+    from tpinn_torch.app.serve import PINNServer
+    from tpinn_torch.core import pde
+    from tpinn_torch.kernels import mlp_taylor
+
+    record = json.loads((out / "inverse.json").read_text())
+    srv = PINNServer(str(out / "params_stage_1.npz"), device=dev)
+    check(srv.problem.name == problem.name
+          and srv.problem.equation == problem.equation,
+          f"served as {srv.problem.name!r}: {srv.problem.equation!r}")
+    rng = np.random.default_rng(SEED)
+    pts = rng.uniform(problem.lb, problem.ub,
+                      (INVERSE_SERVE_N, problem.dim)).astype(np.float32)
+    with kernel_shapes() as shapes, http_server(srv) as base:
+        with urllib.request.urlopen(base + "/health", timeout=60) as r:
+            health = json.loads(r.read())
+        u = np.asarray(post(base, "/predict", pts.tolist())["u"])
+        before = mlp_taylor.LAUNCHES
+        f = np.asarray(post(base, "/residual", pts.tolist())["f"])
+        grew = mlp_taylor.LAUNCHES - before
+    check(health["coef"] == record["coef"] == res.coef,
+          f"/health coef {health.get('coef')}, inverse.json "
+          f"{record['coef']}, trainer {res.coef}")
+    z = torch.from_numpy(pts).to(dev)
+    compiled = pde.compile_pde(problem.equation, problem.coords, inv.params)
+    coef = {k: torch.tensor(v, device=dev) for k, v in res.coef.items()}
+    with torch.no_grad():
+        want_u = res.predict(z)[:, 0].cpu().numpy()
+    want_f = compiled.residual(res.predict, z, coef)[:, 0].detach()
+    want_f = want_f.cpu().numpy()
+    err_u = float(np.abs(u - want_u).max())
+    err_f = float(np.abs(f - want_f).max())
+    check(u.shape == f.shape == (INVERSE_SERVE_N,)
+          and bool(np.isfinite(u).all() and np.isfinite(f).all()),
+          f"served answers {u.shape}, {f.shape}, or not finite")
+    check(err_u <= MARCH_TOL, f"served /predict vs the trainer's: {err_u}")
+    check(grew > 0, "served /residual launched B1 no time")
+    check(np.allclose(f, want_f, rtol=RES_RTOL, atol=RES_ATOL),
+          f"served /residual vs the trainer's residual at the recovered "
+          f"coefficient: max abs err {err_f}")
+    print(f"  inverse heat: checkpoint served on the card with no preset: "
+          f"/health coef {health['coef']} (inverse.json's); /predict at "
+          f"{INVERSE_SERVE_N} points equals the trainer's (max abs "
+          f"difference {err_u:.2e}); /residual through kernel B1 "
+          f"(taylor2_fwd launches +{grew}) against the trainer's residual at "
+          f"lam = {res.coef['lam']:.6f} through the generic engine: max abs "
+          f"difference {err_f:.2e} (max |f| {float(np.abs(want_f).max()):.3e}),"
+          f" on {card}")
+    return shapes
+
+
+def phase_inverse(dev, card):
+    """The scalar inverse path: the step-0 gradient of the heat case's
+    inverse loss (inverse_step0); the heat identification through
+    run_inverse on the card at the CLI's width and batch with the budgets
+    cut (INVERSE_CASES): B1 and B2 at least once per Adam step, B3 once,
+    every launch through the launcher, on the flat 3,330-float vector; the
+    loss drops, |lam - 1| below |0.3 - 1|, the checkpoint, inverse.json and
+    the UI artifacts written and served (check_served_inverse); the same
+    under adam_layout="tree" (B3 once per step per leaf, the coefficient a
+    1-element vector); the eigenvalue mode (lam moves toward pi^2, mean
+    u^2 beside the pin); every B1/B2 launch at a shape phases 3a and 3b
+    hold and every B3 vector at a size 3c holds; the heat case's first
+    INVERSE_REPEAT Adam steps twice, one loss-history digest.  Returns
+    {path: launches}."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tpinn_torch.core.inverse import run_inverse
+
+    by_path = {}
+    held = held_shapes(inverse_kernel_cases())
+    held_sizes = set(inverse_adam_sizes())
+    inverse_step0(dev)
+
+    # the heat identification, flat layout, written and served
+    problem, inv, spec = invert_spec("heat", *INVERSE_CASES["heat"][4],
+                                     **INVERSE_CADENCE)
+    st = spec.stages[0]
+    out = SMOKE_DIR / "inverse" / "heat"
+    res, lines, launches, n_adam, built, shapes, seconds = \
+        run_inverse_counted(problem, inv, spec, dev, out)
+    check_adam_route("inverse heat", built, launches["adam"], [n_adam])
+    sizes = sorted({x.p.numel() for x in built})
+    check(sizes == [max(held_sizes)], f"inverse heat: B3 on vectors of "
+                                      f"{sizes}")
+    h = res.history
+    check(h[n_adam - 1, 0] < h[0, 0] and h[-1, 0] < h[n_adam - 1, 0],
+          f"inverse heat: loss {h[0, 0]:.4e} -> {h[n_adam - 1, 0]:.4e} (Adam)"
+          f" -> {h[-1, 0]:.4e} (L-BFGS)")
+    lam, lam0 = res.coef["lam"], inv.init[0]
+    check(abs(lam - 1.0) < abs(lam0 - 1.0),
+          f"inverse heat: lam {lam} from {lam0} (true 1)")
+    record = json.loads((out / "inverse.json").read_text())
+    check(record["coef"] == res.coef and record["rel_l2"] == res.rel_l2,
+          f"inverse heat: inverse.json {record}")
+    written = sorted(p.name for p in out.glob("*.npz"))
+    check(written == sorted(["boundary_loss_1.npz", "collocation_point_1.npz",
+                             "error_1.npz", "frequency_spectrum.npz",
+                             "loss_1.npz", "params_stage_1.npz",
+                             "solution_residual_1.npz"]),
+          f"inverse heat: files written {written}")
+    n_pts = (spec.n_col + spec.n_adaptive
+             + spec.n_bd * len(problem.bc_groups))
+    print(f"  run_inverse(heat_2d, 'u_t - lam*u_xx', lam=0.3), "
+          f"{st.depth}x{st.width}, {n_pts} points a step and {inv.n_obs} "
+          f"observations, budgets {st.adam_epochs} / {st.lbfgs_epochs} (CLI "
+          f"4000 / 3000): {seconds:.1f} s, Adam steps {n_adam}, launches "
+          f"{launches}, B3 on vectors of {sizes} (held in phase 3c); loss "
+          f"{h[0, 0]:.4e} -> {h[n_adam - 1, 0]:.4e} (Adam) -> {h[-1, 0]:.4e}; "
+          f"lam {res.coef_adam['lam']:.6f} after Adam, {lam:.6f} after L-BFGS "
+          f"(true 1; TPU record iV1 at the full budget: 0.9976), rel-L2 "
+          f"{res.rel_l2:.4e}; checkpoint, inverse.json and 5 artifacts "
+          f"written, on {card}")
+    by_path["heat"] = launches
+    shapes = shapes + check_served_inverse(problem, inv, res, out, dev, card)
+    check_held("inverse heat", shapes, held)
+
+    # the tree layout: one B3 vector per leaf, the coefficient's of 1
+    tree_spec = dataclasses.replace(spec, adam_layout="tree")
+    res_t, _, launches, n_adam_t, built, shapes, seconds = \
+        run_inverse_counted(problem, inv, tree_spec, dev)
+    n_vec = len(leaves_of(res_t.params["net"])) + len(inv.params)
+    sizes = [x.p.numel() for x in built]
+    check(len(built) == n_vec and launches["adam"] == n_adam_t * n_vec
+          and all(x.t - 1 == n_adam_t for x in built),
+          f"inverse heat tree: B3 launched {launches['adam']} times for "
+          f"{n_adam_t} Adam steps on {len(built)} vectors")
+    check(1 in sizes and set(sizes) <= held_sizes,
+          f"inverse heat tree: B3 vectors {sizes}")
+    check_held("inverse heat tree", shapes, held)
+    print(f"  inverse heat, adam_layout='tree': {seconds:.1f} s, Adam steps "
+          f"{n_adam_t}, launches {launches}, B3 on {n_vec} vectors of "
+          f"{sorted(sizes)} (the coefficient's of 1 among them); lam "
+          f"{res_t.coef['lam']:.6f} (flat: {lam:.6f}), on {card}")
+    by_path["heat_tree"] = launches
+
+    # the eigenvalue mode
+    problem_e, inv_e, spec_e = invert_spec(
+        "eigen", *INVERSE_CASES["eigen"][4], **INVERSE_CADENCE)
+    res_e, _, launches, n_adam_e, built, shapes, seconds = \
+        run_inverse_counted(problem_e, inv_e, spec_e, dev)
+    check_adam_route("inverse eigen", built, launches["adam"], [n_adam_e])
+    check_held("inverse eigen", shapes, held)
+    lam_e, pi2 = res_e.coef["lam"], math.pi ** 2
+    check(abs(lam_e - pi2) < abs(inv_e.init[0] - pi2),
+          f"inverse eigen: lam {lam_e} from {inv_e.init[0]} (pi^2 = {pi2})")
+    with torch.no_grad():
+        u = res_e.predict(torch.from_numpy(res_e.z_obs).to(dev))
+    msq = float(torch.mean(u * u))
+    check(res_e.rel_l2 is None and math.isfinite(msq),
+          f"inverse eigen: rel-L2 {res_e.rel_l2}, mean u^2 {msq}")
+    st_e = spec_e.stages[0]
+    print(f"  run_inverse(poisson_1d, 'u_xx + lam*u', lam=8, normalize=0.5),"
+          f" {st_e.depth}x{st_e.width}, budgets {st_e.adam_epochs} / "
+          f"{st_e.lbfgs_epochs}: {seconds:.1f} s, Adam steps {n_adam_e}, "
+          f"launches {launches}; lam {res_e.coef_adam['lam']:.6f} after Adam,"
+          f" {lam_e:.6f} after L-BFGS (pi^2 = {pi2:.6f}, "
+          f"{abs(lam_e - pi2) / pi2:.2e} off); mean u^2 on the {inv_e.n_obs} "
+          f"pin points {msq:.6f} (pin 0.5), on {card}")
+    by_path["eigen"] = launches
+
+    # the first INVERSE_REPEAT Adam steps twice: one history, and the main
+    # run's first rows
+    short = dataclasses.replace(spec, tail_max=0, stages=(
+        dataclasses.replace(st, adam_epochs=INVERSE_REPEAT,
+                            lbfgs_epochs=0),))
+    digests = [history_digest(run_inverse(problem, inv, short,
+                                          device=dev).history)
+               for _ in range(2)]
+    main = history_digest(np.ascontiguousarray(h[:INVERSE_REPEAT]))
+    check(digests[0] == digests[1] == main,
+          f"inverse heat: {INVERSE_REPEAT} Adam steps twice gave digests "
+          f"{digests[0][:12]}, {digests[1][:12]}; the main run's first rows "
+          f"{main[:12]}")
+    print(f"  inverse heat: the first {INVERSE_REPEAT} Adam steps run twice: "
+          f"one loss-history digest {digests[0][:12]}, the main run's first "
+          f"{INVERSE_REPEAT} rows the same")
+    return by_path
+
+
+def inverse_timing(dev, card):
+    """Phase 6's inverse timing: the heat case's Adam step at the CLI's
+    width and batch (flat layout, B3 through a launcher) with the residual
+    through B1/B2 against the same step through the generic engine;
+    synchronised host clock, medians of TIMED_RUNS, alternating."""
+    import torch
+
+    loss_of, pred, generic, tree, data, lw = inverse_loss_setup(dev)
+    joint = tree()
+    with torch.no_grad():
+        ref = loss_of(pred)(joint, data, lw, torch.ones((), device=dev))[1][0]
+    ms = alternating_ms({
+        "kernel": adam_step(loss_of(pred), joint, data, lw, ref),
+        "generic": adam_step(loss_of(generic), tree(), data, lw, ref)})
+    print(f"  Adam step, heat inverse (4x32, {data['x_col'].shape[0]} points "
+          f"and 200 observations, lam in the flat vector): kernel route "
+          f"(B1 + B2 + B3) {ms['kernel']:.3f} ms, generic engine (with B3) "
+          f"{ms['generic']:.3f} ms (synchronised host clock, median of "
+          f"{TIMED_RUNS}, alternating), on {card}")
+    return {"step_inverse_heat": (ms["kernel"], ms["generic"])}
+
+
+def inverse_only() -> None:
+    """Phases 1, 2, 3a-3c and 5g alone: the inverse path on the card."""
+    import torch
+
+    card = card_line()
+    print(f"  card: {card}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda", 0)
+    phase("2. build")
+    phase_build()
+    gen = torch.Generator().manual_seed(SEED)
+    phase("3a. B1 vs plain")
+    phase_kernel_vs_plain(dev, gen)
+    phase("3b. B2 vs plain")
+    phase_b2(dev, gen)
+    phase("3c. B3 vs plain")
+    phase_b3(dev)
+    phase("5g. scalar inverse (the inverse slice's path)")
+    phase_inverse(dev, card)
+    phase("6. inverse timing")
+    inverse_timing(dev, card)
+
+
+def inverse_recipe() -> None:
+    """`tpinn invert`'s heat-diffusivity run as the CLI writes it (budgets
+    4,000 / 3,000, TrainSpec's cadences) through run_inverse on the card:
+    lam, coef_adam, rel-L2 and the wall time, against |lam - 1| <
+    INVERSE_BAR."""
+    import torch
+
+    card = card_line()
+    print(f"  card: {card}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda", 0)
+    phase("2. build")
+    phase_build()
+    phase("5g. tpinn invert's heat run as written")
+    problem, inv, spec = invert_spec("heat")
+    res, _, launches, n_adam, built, shapes, seconds = run_inverse_counted(
+        problem, inv, spec, dev, SMOKE_DIR / "inverse" / "heat_recipe")
+    check_adam_route("inverse recipe", built, launches["adam"], [n_adam])
+    check_held("inverse recipe", shapes, held_shapes(inverse_kernel_cases()))
+    lam = res.coef["lam"]
+    print("INVERSE_RECIPE " + json.dumps({
+        "lam": lam, "coef_adam": res.coef_adam["lam"], "rel_l2": res.rel_l2,
+        "seconds": seconds, "adam_steps": n_adam,
+        "rows": int(res.history.shape[0]), "launches": launches,
+        "card": card}), flush=True)
+    check(abs(lam - 1.0) < INVERSE_BAR,
+          f"inverse recipe: |lam - 1| = {abs(lam - 1.0):.3e} against the bar "
+          f"{INVERSE_BAR}")
 
 
 def queued_ms(fn, blocker) -> float:
@@ -3316,10 +3871,18 @@ def main() -> int:
     system_launches = phase_system(dev, card)
     check(system_launches["kovasznay"]["adam"] > 0,
           "adam launched no time on the system path")
-    # the kernels line's launches: the two newest main paths, marching
-    # (B1, B2, B3) and coupled systems (B3 only), each read on its own
+
+    phase("5g. scalar inverse (the inverse slice's path)")
+    inverse_launches = phase_inverse(dev, card)
+    for k in KERNELS:
+        check(sum(v[k] for v in inverse_launches.values()) > 0,
+              f"{k} launched no time on the inverse path")
+    # the kernels line's launches: the three newest main paths, marching
+    # (B1, B2, B3), coupled systems (B3 only) and scalar inverse (B1, B2,
+    # B3), each read on its own
     launches = {k: sum(v[k] for v in (*march_launches.values(),
-                                      *system_launches.values()))
+                                      *system_launches.values(),
+                                      *inverse_launches.values()))
                 for k in KERNELS}
 
     phase("6. timing")
@@ -3328,6 +3891,7 @@ def main() -> int:
     times.update(b1_times(dev))
     mode_rows = b1_mode_times(dev)
     times.update(system_timing(dev, card))
+    times.update(inverse_timing(dev, card))
     for n in (65_536, 262_144):
         k_ms, p_ms = times[f"residual_{n}"]
         print(f"  residual N={n}: kernel {k_ms:.3f} ms vs plain {p_ms:.3f} ms "
@@ -3340,6 +3904,9 @@ def main() -> int:
     print(f"  Adam step (kovasznay system): with B3 {k_ms:.3f} ms vs plain "
           f"Adam {p_ms:.3f} ms; /residual of its checkpoint at 65,536 "
           f"points {times['residual_kovasznay_65536']:.3f} ms, on {card}")
+    k_ms, g_ms = times["step_inverse_heat"]
+    print(f"  Adam step (heat inverse): kernel route {k_ms:.3f} ms vs generic "
+          f"engine {g_ms:.3f} ms, on {card}")
 
     print(f"  card: {card}")
     # the least time the card could take for each kernel's timed call: the
@@ -3390,11 +3957,13 @@ def main() -> int:
                                  **{f"march_{k}": v[src] for k, v in
                                     march_launches.items()},
                                  **{f"system_{k}": v[src] for k, v in
-                                    system_launches.items()}}, **extra})
+                                    system_launches.items()},
+                                 **{f"inverse_{k}": v[src] for k, v in
+                                    inverse_launches.items()}}, **extra})
         k = kernels[-1]
         print(f"  {name}: {k['ms']:.4f} ms, bound {k['bound_ms']:.5f} ms by "
               f"{k['bound_by']} ({100 * k['bound_ms'] / k['ms']:.1f}% of the "
-              f"time), launches on the marching and system paths "
+              f"time), launches on the marching, system and inverse paths "
               f"{launches[src]}, on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -3428,6 +3997,10 @@ if __name__ == "__main__":
         system_only()
     elif sys.argv[1:2] == ["--system-recipe"] and len(sys.argv) == 3:
         system_recipe(sys.argv[2])
+    elif sys.argv[1:2] == ["--inverse-only"]:
+        inverse_only()
+    elif sys.argv[1:2] == ["--inverse-recipe"]:
+        inverse_recipe()
     elif sys.argv[1:2] == ["--determinism"] and len(sys.argv) <= 3:
         determinism(sys.argv[2] if len(sys.argv) == 3 else None)
     else:

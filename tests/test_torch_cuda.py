@@ -370,3 +370,52 @@ def test_polish_on_the_card_matches_the_cpu(cuda_device):
                                atol=1e-9 * np.abs(d_c["coeffs"]).max())
     np.testing.assert_allclose(t_g, t_c, rtol=0, atol=1e-6 * np.abs(t_c).max()
                                + 1e-9)
+
+
+@pytest.mark.cuda
+def test_inverse_loss_gradient_on_card_matches_generic_engine(cuda_device):
+    """The scalar inverse loss (heat diffusivity, "u_t - lam*u_xx", three
+    BC groups and observations) on the card: its gradient through B1/B2
+    (the coefficient multiplying B1's streams inside the expression)
+    against the same loss through the generic engine, per net leaf and for
+    lam: |kernel - generic| <= 2e-5 + 2e-3 |generic| (fp32, the kernels
+    and the nested jvp passes sum in another order)."""
+    from tpinn_torch.core.inverse import make_inverse_loss
+
+    dev = cuda_device
+    spec = net.MLPSpec(depth=4, width=32)
+    fm = net.feature_map_for(("minmax", "minmax"), pad_to=3)
+    lb, ub = (0.0, 0.0), (1.0, 1.0)
+    pred = net.make_predictor(spec, fm, torch.tensor(lb, device=dev),
+                              torch.tensor(ub, device=dev))
+    generic = lambda p, z: pred(p, z)          # no structured partials
+    compiled = pde.compile_pde("u_t - lam*u_xx", ("x", "t"), ("lam",))
+    gen = torch.Generator().manual_seed(4)
+    box = lambda n: torch.rand((n, 2), generator=gen).to(dev)
+    z_obs = box(200)
+    u_obs = torch.exp(-math.pi ** 2 * z_obs[:, 1:]) * torch.sin(
+        math.pi * z_obs[:, :1])
+    data = {"x_col": box(2_800), "x_bd": [box(100) for _ in range(3)],
+            "u_bd": [torch.zeros((100, 1), device=dev) for _ in range(3)]}
+    lw = torch.tensor([1.0, 0.0], device=dev)
+    ref = torch.tensor(0.7, device=dev)
+    grads = {}
+    for name, p in (("kernel", pred), ("generic", generic)):
+        params = net.init_params(torch.Generator().manual_seed(0), spec, fm,
+                                 dev)
+        lam = torch.tensor(0.3, device=dev, requires_grad=True)
+        leaves = [x.requires_grad_(True) for layer in params["layers"]
+                  for x in (layer["w"], layer["b"])]
+        loss_fn = make_inverse_loss(p, compiled, z_obs, u_obs)
+        before = (mlp_taylor.LAUNCHES, taylor_vjp.LAUNCHES)
+        loss_n, info = loss_fn({"net": params, "coef": {"lam": lam}}, data,
+                               lw, ref)
+        grads[name] = torch.autograd.grad(loss_n, leaves + [lam])
+        torch.cuda.synchronize()
+        grew = (mlp_taylor.LAUNCHES - before[0],
+                taylor_vjp.LAUNCHES - before[1])
+        assert grew == ((1, 1) if name == "kernel" else (0, 0)), grew
+    assert float(grads["kernel"][-1].abs()) > 0.0
+    for k, (a, b) in enumerate(zip(grads["kernel"], grads["generic"])):
+        assert bool(((a - b).abs() <= 2e-5 + 2e-3 * b.abs()).all()), (
+            k, float((a - b).abs().max()), float(b.abs().max()))

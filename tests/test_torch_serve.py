@@ -180,13 +180,13 @@ GALERKIN = {"kind": "galerkin", "lb": [0.1, 0.0], "ub": [1.0, TWO_PI],
             "coeffs": [3.1e-3, -1.7e-3, 0.9e-3], "linearized": False}
 
 
-@pytest.mark.parametrize("what", ["deflation", "ensemble", "inverse",
-                                  "patch"])
+@pytest.mark.parametrize("what", ["deflation", "ensemble", "patch"])
 def test_unported_checkpoints_refused(tmp_path, what):
-    """Ensemble, scalar inverse and patch checkpoints are refused; a
-    deflation-corrected one is served, with the correction subtracted
-    (march records are served: test_march_record_served_by_both_packages;
-    system checkpoints: test_torch_system_train.py)."""
+    """Ensemble and patch checkpoints are refused; a deflation-corrected
+    one is served, with the correction subtracted (march records are
+    served: test_march_record_served_by_both_packages; system checkpoints:
+    test_torch_system_train.py; scalar inverse checkpoints:
+    test_torch_inverse.py)."""
     fm = jnet.feature_map_for(KINDS)
     s = jnet.MLPSpec(depth=2, width=8)
     p = jnet.init_params(jax.random.PRNGKey(0), s, fm)
@@ -194,7 +194,6 @@ def test_unported_checkpoints_refused(tmp_path, what):
     meta = _meta([s])
     meta.update({
         "deflation": {"deflation": GALERKIN},
-        "inverse": {"inverse": True, "coef": {"lam": 0.5}},
         "patch": {"patch": {"n": [2, 2], "overlap": 0.2}},
     }.get(what, {}))
     jckpt.save_pytree(path, p, meta=meta)

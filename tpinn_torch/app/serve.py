@@ -40,9 +40,14 @@ values.  ``/predict`` answers one row of m fields per point and
 ``/residual`` one row of E equation columns, through the generic jvp
 engine (kernel B1 is scalar).
 
+A scalar inverse checkpoint (core.inverse.run_inverse) describes itself
+the same way, with its equation and the recovered coefficients in the
+meta: served with no preset, ``/residual`` evaluated at the recovered
+values (through kernel B1 on the card), ``/health`` reporting them.
+
 Not ported yet, and refused with NotImplementedError rather than served
-wrong: ensembles (``ensemble.json``), patch and scalar inverse
-checkpoints.  ROADMAP.md Queue A items 13c and 13d bring them.
+wrong: ensembles (``ensemble.json``) and patch checkpoints.  ROADMAP.md
+Queue A item 13d brings them.
 """
 
 from __future__ import annotations
@@ -72,12 +77,24 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
-def _described_system(meta: dict) -> SimpleNamespace:
-    """The problem record of a self-describing system checkpoint."""
+def _described_problem(meta: dict) -> SimpleNamespace:
+    """The problem record of a self-describing checkpoint (run_system's or
+    run_inverse's meta: coordinates, box and equations)."""
+    if "coords" not in meta or "lb" not in meta:
+        raise ValueError(
+            "--problem is required: this checkpoint's meta does not "
+            "describe its own domain/equation")
+    sysm = meta.get("system")
+    eq = (meta.get("equation")
+          or ("; ".join(sysm["equations"]) if sysm else ""))
+    if not eq:
+        raise ValueError(
+            "--problem is required: this (forward) checkpoint's meta has "
+            "no equation record")
     coords = tuple(meta["coords"])
     return SimpleNamespace(
         name=meta.get("problem", "checkpoint"), coords=coords,
-        dim=len(coords), equation="; ".join(meta["system"]["equations"]),
+        dim=len(coords), equation=eq,
         feature_kinds=tuple(meta.get("feature_kinds") or ()),
         lb=tuple(meta["lb"]), ub=tuple(meta["ub"]), source=None,
         bc_groups=())
@@ -112,36 +129,31 @@ class PINNServer:
                         if k.endswith("/w")]
         sysm = meta.get("system")
         coefm = meta.get("coef") or {}
-        # a system checkpoint may carry identified coefficients; a scalar
-        # one that does is an inverse checkpoint
-        if not sysm and (meta.get("inverse") or coefm):
-            _refuse("inverse", "13c")
         if meta.get("patch"):
             _refuse("patch", "13d")
-        if problem_name is not None:
-            problem = problems.get_problem(problem_name)
-        elif sysm and "coords" in meta and "lb" in meta:
-            problem = _described_system(meta)
-        else:
-            raise ValueError(
-                "--problem is required: this checkpoint's meta does not "
-                "describe its own domain and equations")
+        problem = (problems.get_problem(problem_name)
+                   if problem_name is not None else _described_problem(meta))
         self.problem = problem
-        self._coef = None
+        coords = tuple(meta.get("coords", problem.coords))
         if sysm:
-            if deflate != "off":
-                raise ValueError(
-                    "--deflate targets scalar forward checkpoints; system "
-                    "checkpoints have no spectral correction path")
             # one residual column per equation, coefficients at their
             # recovered values
             self.compiled = pde.compile_system(
-                sysm["equations"], tuple(meta.get("coords", problem.coords)),
-                sysm["fields"], params=tuple(coefm))
-            self._coef = {k: torch.tensor(float(v), device=self.device)
-                          for k, v in coefm.items()} or None
+                sysm["equations"], coords, sysm["fields"],
+                params=tuple(coefm))
+        elif meta.get("inverse") and meta.get("equation"):
+            # identified model: the equation's unknown coefficients at
+            # their recovered values
+            self.compiled = pde.compile_pde(meta["equation"], coords,
+                                            params=tuple(coefm))
         else:
             self.compiled = pde.compile_pde(problem.equation, problem.coords)
+        self._coef = {k: torch.tensor(float(v), device=self.device)
+                      for k, v in coefm.items()} or None
+        if (sysm or coefm) and deflate != "off":
+            raise ValueError(
+                "--deflate targets scalar forward checkpoints; system/"
+                "identified checkpoints have no spectral correction path")
 
         dev = self.device
         fm = net.feature_map_for(
@@ -179,7 +191,6 @@ class PINNServer:
             template = template_for(spec)
             predictor = net.make_predictor(spec, fm, lb, ub)
         if meta.get("hard_bc"):
-            coords = tuple(meta.get("coords", problem.coords))
             lift_fn, bubble_fn = (
                 pde.compile_coord_expr(e, coords) for e in meta["hard_bc"]
             )
@@ -197,8 +208,7 @@ class PINNServer:
                 problem.lb, problem.ub,
                 tuple(meta["hard_bc"]) if meta.get("hard_bc") else None,
                 mode=deflate, source_fn=src,
-                coords=tuple(meta.get("coords", problem.coords)),
-                bc_groups=problem.bc_groups)
+                coords=coords, bc_groups=problem.bc_groups)
             print(f"[serve] deflate={deflate}: "
                   + (f"{defl['kind']} correction, {len(defl['modes'])} "
                      f"modes" if defl else "no applicable correction"),
@@ -223,6 +233,7 @@ class PINNServer:
         self.problem = problem
         self.compiled = pde.compile_pde(problem.equation, problem.coords)
         self.deflation = None
+        self._coef = None
         rec = json.loads(record.read_text())
         subs = [PINNServer(str(record.parent / w), problem_name,
                            device=self.device) for w in rec["windows"]]
@@ -245,7 +256,8 @@ class PINNServer:
         if isinstance(self.compiled, pde.CompiledSystem):
             return self.compiled.residual(
                 lambda zz: self.predictor(self.params, zz), z, self._coef)
-        return self.compiled.residual_fast(self.predictor, self.params, z)
+        return self.compiled.residual_fast(self.predictor, self.params, z,
+                                           self._coef)
 
     @staticmethod
     def _tier(n: int) -> int:
@@ -296,9 +308,13 @@ def make_handler(server: PINNServer):
 
         def do_GET(self):
             if self.path == "/health":
-                self._json({"ok": True, "problem": server.problem.name,
-                            "equation": server.problem.equation,
-                            "device": str(server.device)})
+                info = {"ok": True, "problem": server.problem.name,
+                        "equation": server.problem.equation,
+                        "device": str(server.device)}
+                if server._coef is not None:
+                    info["coef"] = {k: float(v)
+                                    for k, v in server._coef.items()}
+                self._json(info)
             else:
                 self._json({"error": "not found"}, 404)
 
@@ -324,8 +340,8 @@ def main():  # pragma: no cover
                                             "with the PyTorch port")
     p.add_argument("--checkpoint", required=True)
     p.add_argument("--problem", default=None,
-                   help="problem preset (optional for a system checkpoint, "
-                        "whose meta describes it)")
+                   help="problem preset (optional for a system or inverse "
+                        "checkpoint, whose meta describes it)")
     p.add_argument("--port", type=int, default=8060)
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' fails without a card")

@@ -41,6 +41,7 @@ import torch
 
 from tpinn_torch.core import loss as loss_mod
 from tpinn_torch.core import net, optim, pde, sample
+from tpinn_torch.core.inverse import synth_observations
 from tpinn_torch.core.train import (_DTYPES, TrainSpec, _check_supported,
                                     adam_matmul_precision, eval_grid,
                                     resolve_device, resolve_testing_size)
@@ -155,29 +156,15 @@ def _on(x, dtype, dev) -> Tensor:
     return torch.as_tensor(x, dtype=dtype, device=dev)
 
 
-def _observations(problem: SystemSpec, inverse, observations, lb, ub, dtype,
-                  dev):
+def _observations(problem: SystemSpec, inverse, observations, dtype, dev):
     """The observation pair (z_obs, u_obs) on ``dev``: the caller's, or
-    ``inverse.n_obs`` LHS points from a CPU generator seeded with
-    ``inverse.obs_seed`` labelled by ``problem.exact`` plus its Gaussian
-    noise (the same draw on every device)."""
+    full-state observations synthesized from ``problem.exact``
+    (inverse.synth_observations, one noise column per field)."""
     if observations is not None:
         return (_on(observations[0], dtype, dev),
                 _on(observations[1], dtype, dev))
-    if problem.exact is None:
-        raise ValueError(
-            "inverse system identification needs observations or an "
-            "analytic oracle to synthesize them from")
-    gen = torch.Generator().manual_seed(inverse.obs_seed)
-    z_obs = sample.lhs_box(gen, inverse.n_obs, lb, ub, dtype)
-    noise = (inverse.obs_noise * torch.randn(
-        (inverse.n_obs, len(problem.fields)), generator=gen, dtype=dtype)
-        if inverse.obs_noise > 0.0 else None)
-    z_obs = z_obs.to(dev)
-    u_obs = _on(problem.exact(z_obs), dtype, dev)
-    if noise is not None:
-        u_obs = u_obs + noise.to(dev)
-    return z_obs, u_obs
+    return synth_observations(problem, inverse, dtype, dev,
+                              n_fields=len(problem.fields))
 
 
 def run_system(
@@ -249,8 +236,7 @@ def run_system(
 
     obs = None
     if inverse is not None:
-        obs = _observations(problem, inverse, observations, problem.lb,
-                            problem.ub, dtype, dev)
+        obs = _observations(problem, inverse, observations, dtype, dev)
         log(f"system: inverse mode, {len(param_names)} coefficient(s) "
             f"{param_names}, {obs[0].shape[0]} observations")
 

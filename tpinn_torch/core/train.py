@@ -283,11 +283,13 @@ def make_density_fn(predictor, compiled: pde.CompiledPDE, grids,
                     source_fn=None, mask_fn=None):
     """The adaptive density (predictF): residual² normalized + 0.5 floor,
     Gaussian-smoothed, on the sampler's grid; ``mask_fn`` zeroes it outside
-    a masked non-box domain.  Call it under ``torch.no_grad()``."""
+    a masked non-box domain.  ``density(params, coef)`` evaluates the
+    residual at the equation's unknown coefficients ``coef``, if it has
+    any (core.inverse).  Call it under ``torch.no_grad()``."""
     z, reshape, smooth = sample.density_geometry(grids)
 
-    def density(params):
-        f0 = compiled.residual_fast(predictor, params, z)
+    def density(params, coef=None):
+        f0 = compiled.residual_fast(predictor, params, z, coef)
         if source_fn is not None:
             f0 = f0 - source_fn(z)
         f_sq = f0 ** 2
