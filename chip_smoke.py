@@ -56,9 +56,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
       marching windows' 4x64 net on 3 features) and the system path's
       vectors (17,091: kovasznay's and taylor_green's 5x64 nets with 3
       outputs; 37,826: schrodinger's 5x96 with 2; 1 and the other leaves
-      of phase 5f's inverse case under the tree layout) and the inverse
+      of phase 5f's inverse case under the tree layout), the inverse
       path's (3,330: the 4x32 net and lam raveled; 96, 1,024, 32 and 1:
-      its leaves under the tree layout), each on aligned
+      its leaves under the tree layout) and the patch path's stacked
+      vectors (468,036: 36 nets of 6x50 on 3 features; 2,824: the tests'
+      8 nets of 2x16), each on aligned
       vectors and on views one float off 16-byte alignment: through the
       Adam phase's launcher (FusedAdam, the step and the bias corrections
       read on the device) and through adam_update_flat, which must agree
@@ -186,6 +188,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
    hold, every B3 vector at a size 3c holds; the heat case's first 50
    Adam steps run twice, one loss-history digest equal to the main run's
    first rows.
+5h. Ensembles, patches and the reference-semantics mode (the ensemble
+   and patch slice's paths).  a: get_recipe("annulus_laplace") with two
+   members through run_ensemble_training on the card at phase 5b's cut
+   (300 / 900, tail_max 50): launch counts read around each member (B1
+   and B2 at least once per Adam step, at shapes phase 3b holds; B3 once,
+   through the launcher, on the 32,801-float vector); the convex weights
+   sum to 1 within 1e-12 (their kind printed); no member checkpoint
+   carries a deflation; rel-L2 <= 1.5 x the best member's (tpinn's bar);
+   the error correlation and every rel-L2 printed; ensemble.json served on
+   the card: /predict within 1e-6 of EnsembleResult.predict, /uncertainty
+   of shape [n] and >= 0, /residual against the corrected mean's
+   residual_fast (rtol 1e-3, atol 1e-4) with its engine.  b: patched
+   helmholtz_2d as `tpinn train --patches 6x6` builds it (36 nets of 6x50
+   on 3 padded features, 4,900 points a step, seed 1234), budgets cut from
+   8,000 / 3,000 to 300 / 150, cadences as in 5e, through run_patched:
+   B1 = B2 = 0 (the generic engine), B3 once per Adam step on the
+   468,036-float stacked vector; the loss drops; rel-L2 finite and
+   printed; params_stage_1.npz and patched.json written and served
+   (/predict within 1e-6); the first 50 Adam steps run twice, one digest
+   equal to the main run's first rows.  c: at bench.py's shape (soft-BC
+   annulus, 6x60 float64, 5,200 points) reference_residual_polar against
+   the forward engine's residual_fast (rtol 1e-8, atol 1e-10) and 30
+   reference Adam steps lower the loss.
 6. Timing (medians of synchronised runs): B1 inside the residual at the
    serving shapes; B1 alone against its plain version at the served
    262,144 points, the recipe's batch and L-BFGS grid (46,000, 202,500)
@@ -205,7 +230,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    engine; B3 against its plain version) and /residual of phase 5f's
    kovasznay checkpoint at 65,536 points; the heat inverse Adam step at
    the CLI's width and batch, its residual through B1/B2 against the
-   generic engine (B3 in both).
+   generic engine (B3 in both); the patched Adam step at 5h-b's shape (B3
+   against its plain version) and, at bench.py's shape, the reference-
+   semantics step (float64, reverse over reverse) against the kernel-
+   engine step.
 
 Partial runs, for work on kernels B1, B2 and B3 and on one path (not part
 of the smoke):
@@ -224,6 +252,8 @@ of the smoke):
     python3 chip_smoke.py --system-recipe NAME # one system recipe as written
     python3 chip_smoke.py --inverse-only       # phases 2, 3a-3c, 5g, its timing
     python3 chip_smoke.py --inverse-recipe     # the heat run as `tpinn invert`
+    python3 chip_smoke.py --ensemble-patch-only # phases 2, 3c, 5h, its timing
+    python3 chip_smoke.py --patch-recipe       # tpinn's FBPINN case as written
     python3 chip_smoke.py --determinism [DIR]  # warned ops of 5c's training
 
 The compares time the kernel at phase 6's shapes in DIR (say a git
@@ -250,11 +280,15 @@ operation PyTorch warned about with the line of Python that called it.
 budgets (4,000 / 3,000) and TrainSpec's cadences, prints an
 INVERSE_RECIPE line (lam, coef_adam, rel-L2, wall time, launches) and
 fails unless |lam - 1| < 1e-2 (the bar of tests/test_inverse.py).
+--patch-recipe runs tpinn's FBPINN case (u = sin(15πx), 8 patches of
+2x16, 15,000 / 4,500) through run_patched, prints a PATCH_RECIPE line
+(rel-L2, wall time, launches) and fails unless rel-L2 < 2e-2 (the bar of
+tests/test_patch.py).
 
 The line before the last is a JSON object describing the kernels (each
-with its launches on the three newest main paths, phase 5e's three
-marching recipes, phase 5f's coupled systems and phase 5g's inverse
-runs together, and on every
+with its launches on the four newest main paths, phase 5e's three
+marching recipes, phase 5f's coupled systems, phase 5g's inverse runs
+and phase 5h's ensemble members and patched run together, and on every
 path by name, its time, its plain version's, the card's bound for the
 same work and, where one PyTorch call computes the same function, that
 call's time; B1 and B2 with every timed shape and its plan under
@@ -374,6 +408,19 @@ INVERSE_CADENCE = MARCH_CADENCE
 INVERSE_REPEAT = 50  # Adam steps of the heat case run twice
 INVERSE_SERVE_N = 1_000  # points a served request (B1 at the 1,024 tier)
 INVERSE_BAR = 1e-2  # |lam - 1| of --inverse-recipe (tests/test_inverse.py)
+# phase 5h: the flagship recipe with two ensemble members at phase 5b's
+# cut; patched helmholtz_2d as `tpinn train --patches 6x6` builds it
+# (patch_cli_spec), budgets cut from the CLI's 8,000 / 3,000, the cadences
+# as in phase 5e; refmode at bench.py's shape, its residual against the
+# forward engine in float64 and REF_STEPS reference Adam steps
+ENSEMBLE_K = 2
+PATCH_N = (6, 6)
+PATCH_CUT = (300, 150)
+PATCH_CADENCE = MARCH_CADENCE
+PATCH_REPEAT = 50   # Adam steps of the patched run trained twice
+PATCH_BAR = 2e-2    # rel-L2 of --patch-recipe (tests/test_patch.py)
+REF_STEPS = 30
+REF_RTOL, REF_ATOL = 1e-8, 1e-10
 SERVE_RTOL, SERVE_ATOL = 1e-5, 1e-6  # served /predict vs the trainer's
 QUEUED = 100        # back-to-back launches timed behind a long kernel
 # B3 past one grid of 132 SMs x 4 blocks x 256 threads: its threads loop
@@ -981,8 +1028,9 @@ def phase_b3(dev):
     counted on the device) and through adam_update_flat side by side, at
     n = ADAM_N, 1,001 (one element a thread), LOOP_N (the threads loop),
     the marching windows' parameter count, the system path's vectors
-    (system_adam_sizes: 17,091, 37,826, 1 and the inverse case's leaves)
-    and the inverse path's (inverse_adam_sizes: 3,330 and the leaves), on
+    (system_adam_sizes: 17,091, 37,826, 1 and the inverse case's leaves),
+    the inverse path's (inverse_adam_sizes: 3,330 and the leaves) and the
+    patch path's stacked vectors (patch_adam_sizes: 468,036 and 2,824), on
     aligned vectors and on views one float off alignment; then the graph
     check."""
     import torch
@@ -991,7 +1039,8 @@ def phase_b3(dev):
 
     worst_abs = 0.0
     sizes = {*march_adam_sizes(), *system_adam_sizes(),
-             *inverse_adam_sizes()} - {ADAM_N, 1_001, LOOP_N}
+             *inverse_adam_sizes(), *patch_adam_sizes()} - {ADAM_N, 1_001,
+                                                             LOOP_N}
     for n in (ADAM_N, 1_001, LOOP_N, *sorted(sizes)):
         for offset in (0, 1):
             gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -2874,6 +2923,526 @@ def inverse_recipe() -> None:
           f"{INVERSE_BAR}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 5h: ensembles, overlapping patches and the reference-semantics mode
+# ---------------------------------------------------------------------------
+
+
+def ensemble_kernel_cases():
+    """(name, spec, fm, lb, ub, streams, N, backward) of the shapes the
+    ensemble path launches B1 and B2 at: each member is the flagship
+    recipe's 6x80 hard-BC net, at its batch (the Adam steps) and at its
+    L-BFGS grid (450^2), B1 and B2 both.  Phase 3b holds both (kernel_cases
+    at RECIPE_N and RECIPE_GRID_N)."""
+    from tpinn_torch.core import net
+
+    annulus_fm = net.feature_map_for(("minmax", "periodic"))
+    return [(f"annulus_laplace recipe 6x80, {what}", annulus_spec(),
+             annulus_fm, (0.1, 0.0), (1.0, 2 * math.pi), IDX5, n, True)
+            for what, n in (("the batch", RECIPE_N),
+                            ("the L-BFGS grid", RECIPE_GRID_N))]
+
+
+def patch_cli_spec(adam_epochs=8000, lbfgs_epochs=3000, **spec_kw):
+    """helmholtz_2d and its TrainSpec as `tpinn train --problem helmholtz_2d
+    --patches 6x6` builds them at the CLI's defaults (tpinn/cli.py): a 6x50
+    tanh net per patch on 3 padded features, 3,000 + 500 + 1,000 points
+    and 100 per BC group a step, lw (1, 0), seed 1234; the TrainSpec
+    fields of ``spec_kw`` replaced."""
+    from tpinn_torch import problems
+    from tpinn_torch.core.train import StageSpec, TrainSpec
+
+    spec = TrainSpec(n_col=3000, n_band=500, n_adaptive=1000, n_bd=100,
+                     lw=(1.0, 0.0), seed=1234, pad_features=3,
+                     stages=(StageSpec(depth=6, width=50, scl=1.0,
+                                       epsil=1.0, adam_epochs=adam_epochs,
+                                       lbfgs_epochs=lbfgs_epochs),),
+                     **spec_kw)
+    return problems.get_problem("helmholtz_2d"), spec
+
+
+def patch_adam_sizes():
+    """The stacked vectors B3 updates on the patch path: 5h-b's 36 nets of
+    6x50 on 3 features (468,036 floats) and the tests' 8 nets of 2x16
+    (2,824).  Phase 3c holds them."""
+    import torch
+
+    from tpinn_torch.core import net
+    from tpinn_torch.core.patch import PatchSpec, init_patch_params
+
+    sizes = []
+    for n, depth, width in ((PATCH_N, 6, 50), ((8,), 2, 16)):
+        params = init_patch_params(torch.Generator().manual_seed(SEED),
+                                   net.MLPSpec(depth=depth, width=width),
+                                   PatchSpec(n=n), pad_features=3)
+        sizes.append(sum(t.numel() for t in leaves_of(params)))
+    return sorted(sizes)
+
+
+@contextlib.contextmanager
+def member_launches():
+    """Reads the kernels' launch counts around every ensemble member's
+    run_training: yields the list that gets one dict per member."""
+    from tpinn_torch.core import ensemble
+
+    counts = []
+    inner = ensemble.run_training
+
+    def counted(*args, **kwargs):
+        reset_launches()
+        res = inner(*args, **kwargs)
+        counts.append(read_launches())
+        return res
+
+    ensemble.run_training = counted
+    try:
+        yield counts
+    finally:
+        ensemble.run_training = inner
+
+
+def adam_steps_logged(lines):
+    return [int(m.group(1)) for m in
+            (re.search(r"Adam done \((\d+) steps", ln) for ln in lines) if m]
+
+
+def phase_ensemble(dev, card):
+    """5h-a: get_recipe("annulus_laplace") with two members through
+    run_ensemble_training at phase 5b's cut: B1 and B2 at least once per
+    Adam step of each member at shapes phase 3b holds, B3 once on the
+    32,801-float vector; convex weights; no member deflation; rel-L2 within
+    tpinn's bar; ensemble.json served (/predict, /uncertainty, /residual).
+    Returns {path: launches}."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tpinn_torch import problems
+    from tpinn_torch.app.serve import PINNServer
+    from tpinn_torch.core.ensemble import run_ensemble_training
+    from tpinn_torch.kernels import mlp_taylor
+
+    problem, spec = problems.get_recipe("annulus_laplace")
+    spec = dataclasses.replace(spec, tail_max=50, stages=(dataclasses.replace(
+        spec.stages[0], adam_epochs=RECIPE_ADAM,
+        lbfgs_epochs=RECIPE_LBFGS),))
+    out = SMOKE_DIR / "ensemble"
+    shutil.rmtree(out, ignore_errors=True)
+    lines = []
+    t0 = time.perf_counter()
+    with member_launches() as counts, adam_launchers() as built, \
+            kernel_shapes() as shapes:
+        res = run_ensemble_training(problem, spec, n_members=ENSEMBLE_K,
+                                    output_dir=str(out), log_fn=lines.append,
+                                    device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    for line in lines:
+        print(f"  | {line}")
+    n_adam = adam_steps_logged(lines)
+    check(len(n_adam) == len(counts) == ENSEMBLE_K
+          and all(n >= RECIPE_ADAM for n in n_adam),
+          f"ensemble: Adam phases {n_adam}, members counted {len(counts)}")
+    by_path = {}
+    for i, (c, n) in enumerate(zip(counts, n_adam)):
+        for k in ("taylor2_fwd", "taylor2_bwd"):
+            check(c[k] >= n, f"ensemble member {i}: {k} launched {c[k]} "
+                             f"times for {n} Adam steps")
+        by_path[f"ensemble_member_{i}"] = c
+    check_adam_route("ensemble", built, sum(c["adam"] for c in counts),
+                     n_adam)
+    sizes = sorted({x.p.numel() for x in built})
+    check(sizes == [ADAM_N], f"ensemble: B3 on vectors of {sizes}")
+    check_held("ensemble", shapes, held_shapes(ensemble_kernel_cases()))
+    w = np.asarray(res.weights)
+    how = re.search(r"ensemble weights \((\S+)\)", "\n".join(lines))
+    check(abs(float(w.sum()) - 1.0) <= 1e-12 and how is not None,
+          f"ensemble: weights {w.tolist()} sum to {w.sum()}")
+    record = json.loads((out / "ensemble.json").read_text())
+    for m in record["members"]:
+        with np.load(out / m) as raw:
+            meta = json.loads(bytes(raw["__meta__"]).decode())
+        check(meta.get("deflation") in (None, {}),
+              f"ensemble: member checkpoint {m} carries a deflation")
+    best = min(res.rel_l2_members)
+    check(res.rel_l2 is not None and math.isfinite(res.rel_l2)
+          and res.rel_l2 <= 1.5 * best,
+          f"ensemble: rel-L2 {res.rel_l2} against 1.5 x the best member "
+          f"{best}")
+    print(f"  run_ensemble_training(get_recipe('annulus_laplace'), "
+          f"n_members={ENSEMBLE_K}, budgets {RECIPE_ADAM} / {RECIPE_LBFGS}, "
+          f"tail_max 50): {seconds:.1f} s, Adam steps {n_adam}, launches "
+          f"per member {counts}, B3 on vectors of {sizes}; weights "
+          f"({how.group(1)}) {w.tolist()} (sum - 1 = {w.sum() - 1.0:.1e}); "
+          f"error correlation {res.err_correlation}; rel-L2 members "
+          f"{res.rel_l2_members}, raw mean {res.rel_l2_mean_raw:.4e}, final "
+          f"{res.rel_l2:.4e} (correction "
+          f"{(res.deflation or {}).get('kind')}), on {card}")
+
+    # ensemble.json served on the card
+    srv = PINNServer(str(out), "annulus_laplace", device=dev)
+    rng = np.random.default_rng(SEED)
+    pts = np.stack([rng.uniform(0.1, 1.0, 1_000),
+                    rng.uniform(0.0, 2 * np.pi, 1_000)],
+                   axis=1).astype(np.float32)
+    with http_server(srv) as base:
+        u = np.asarray(post(base, "/predict", pts.tolist())["u"])
+        std = np.asarray(post(base, "/uncertainty", pts.tolist())["std"])
+        before = mlp_taylor.LAUNCHES
+        f = np.asarray(post(base, "/residual", pts.tolist())["f"])
+        grew = mlp_taylor.LAUNCHES - before
+    z = torch.from_numpy(pts).to(dev)
+    with torch.no_grad():
+        want_u = res.predict(z)[:, 0].cpu().numpy()
+    want_f = srv.compiled.residual_fast(lambda _, zz: res.predict(zz), None,
+                                        z)[:, 0].detach().cpu().numpy()
+    err_u = float(np.abs(u - want_u).max())
+    err_f = float(np.abs(f - want_f).max())
+    check(err_u <= 1e-6, f"ensemble: served /predict vs the trainer's: "
+                         f"{err_u}")
+    check(std.shape == (1_000,) and bool((std >= 0).all()),
+          f"ensemble: /uncertainty shape {std.shape} or negative")
+    check(f.shape == (1_000,) and bool(np.isfinite(f).all())
+          and np.allclose(f, want_f, rtol=RES_RTOL, atol=RES_ATOL),
+          f"ensemble: served /residual vs the corrected mean's: {err_f}")
+    print(f"  ensemble.json served on the card: /predict at 1,000 points "
+          f"equals EnsembleResult.predict (max abs difference {err_u:.2e}); "
+          f"/uncertainty in [{std.min():.3e}, {std.max():.3e}]; /residual "
+          f"against the corrected mean's residual_fast: max abs difference "
+          f"{err_f:.2e} (max |f| {np.abs(want_f).max():.3e}), engine "
+          f"{'kernel B1' if grew else 'generic jvp'} (taylor2_fwd +{grew}), "
+          f"on {card}")
+    return by_path
+
+
+def run_patched_counted(problem, spec, dev, out=None):
+    """run_patched (6x6 patches) on the card, its checkpoint and record
+    under ``out`` (when given), the launch counts reset before and read
+    after, every B3 launcher recorded.  Returns (result, log lines,
+    launches, Adam steps, launchers built, seconds)."""
+    import torch
+
+    from tpinn_torch.core.patch import PatchSpec, run_patched
+
+    if out is not None:
+        shutil.rmtree(out, ignore_errors=True)
+    lines = []
+    reset_launches()
+    t0 = time.perf_counter()
+    with adam_launchers() as built:
+        res = run_patched(problem, spec, PatchSpec(n=PATCH_N),
+                          output_dir=None if out is None else str(out),
+                          log_fn=lines.append, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    n_adam = adam_steps_logged(lines)
+    check(len(n_adam) == 1 and n_adam[0] >= spec.stages[0].adam_epochs,
+          f"patched: Adam phases logged {n_adam}")
+    return res, lines, launches, n_adam[0], built, seconds
+
+
+def phase_patch(dev, card):
+    """5h-b: patched helmholtz_2d with 6x6 patches of the CLI's 6x50 net
+    (patch_cli_spec) through run_patched at the cut budget: B1 = B2 = 0, B3
+    once per Adam step on the stacked vector (a size phase 3c holds); the
+    loss drops; rel-L2 finite; checkpoint and patched.json written and
+    served (/predict); the first PATCH_REPEAT Adam steps twice, one
+    digest.  Returns {path: launches}."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tpinn_torch.app.serve import PINNServer
+
+    problem, spec = patch_cli_spec(*PATCH_CUT, **PATCH_CADENCE)
+    st = spec.stages[0]
+    out = SMOKE_DIR / "patch"
+    torch.cuda.reset_peak_memory_stats(dev)
+    res, lines, launches, n_adam, built, seconds = run_patched_counted(
+        problem, spec, dev, out)
+    for line in lines:
+        print(f"  | {line}")
+    check(launches["taylor2_fwd"] == launches["taylor2_bwd"] == 0,
+          f"patched: B1/B2 launched {launches} (the generic engine expected)")
+    check_adam_route("patched", built, launches["adam"], [n_adam])
+    sizes = sorted({x.p.numel() for x in built})
+    check(sizes == [max(patch_adam_sizes())],
+          f"patched: B3 on vectors of {sizes}")
+    h = res.history
+    check(h[n_adam - 1, 0] < h[0, 0] and h[-1, 0] <= h[n_adam, 0],
+          f"patched: loss {h[0, 0]:.4e} -> {h[n_adam - 1, 0]:.4e} (Adam), "
+          f"L-BFGS {h[n_adam, 0]:.4e} -> {h[-1, 0]:.4e}")
+    check(res.rel_l2 is not None and math.isfinite(res.rel_l2),
+          f"patched: rel-L2 {res.rel_l2}")
+    written = sorted(p.name for p in out.iterdir())
+    check(written == ["params_stage_1.npz", "patched.json"],
+          f"patched: files written {written}")
+    n_pts = spec.n_col + spec.n_band + spec.n_adaptive + 4 * spec.n_bd
+    print(f"  run_patched(helmholtz_2d, PatchSpec(n={PATCH_N})), "
+          f"{res.n_patches} nets of {st.depth}x{st.width}, {n_pts} "
+          f"collocation and {4 * spec.n_bd} boundary points a step, budgets {st.adam_epochs} / {st.lbfgs_epochs} (CLI 8000 / "
+          f"3000): {seconds:.1f} s, Adam steps {n_adam}, launches "
+          f"{launches}, B3 on vectors of {sizes} (held in phase 3c); loss "
+          f"{h[0, 0]:.4e} -> {h[n_adam - 1, 0]:.4e} (Adam) -> {h[-1, 0]:.4e} "
+          f"(L-BFGS); rel-L2 {res.rel_l2:.4e} (no record: hP1 never ran), "
+          f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} "
+          f"GiB, on {card}")
+
+    srv = PINNServer(str(out / "params_stage_1.npz"), "helmholtz_2d",
+                     device=dev)
+    pts = np.random.default_rng(SEED).uniform(
+        0.0, 1.0, (1_000, 2)).astype(np.float32)
+    with http_server(srv) as base:
+        u = np.asarray(post(base, "/predict", pts.tolist())["u"])
+    with torch.no_grad():
+        want = res.predict(torch.from_numpy(pts).to(dev))[:, 0].cpu().numpy()
+    err = float(np.abs(u - want).max())
+    check(err <= 1e-6, f"patched: served /predict vs the trainer's: {err}")
+    print(f"  params_stage_1.npz served on the card: /predict at 1,000 points "
+          f"equals PatchResult.predict (max abs difference {err:.2e})")
+
+    short = dataclasses.replace(spec, tail_max=0, stages=(
+        dataclasses.replace(st, adam_epochs=PATCH_REPEAT, lbfgs_epochs=0),))
+    digests = [history_digest(run_patched_counted(problem, short, dev)[0]
+                              .history) for _ in range(2)]
+    main = history_digest(np.ascontiguousarray(h[:PATCH_REPEAT]))
+    check(digests[0] == digests[1] == main,
+          f"patched: {PATCH_REPEAT} Adam steps twice gave digests "
+          f"{digests[0][:12]}, {digests[1][:12]}; the main run's first rows "
+          f"{main[:12]}")
+    print(f"  patched: the first {PATCH_REPEAT} Adam steps run twice: one "
+          f"loss-history digest {digests[0][:12]}, the main run's first "
+          f"{PATCH_REPEAT} rows the same")
+    return {"patch_helmholtz_2d": launches}
+
+
+def refmode_setup(dev):
+    """bench.py's reference arm on the card: the soft-BC annulus, a 6x60
+    float64 net, 5,200 points (bench.py's counts) in float64.  Returns
+    (predictor, params, compiled, data, lw)."""
+    import torch
+
+    from tpinn_torch import problems
+    from tpinn_torch.core import net, pde, sample
+
+    f64 = torch.float64
+    problem = problems.annulus_laplace()
+    fm = net.feature_map_for(problem.feature_kinds)
+    pred = net.make_predictor(annulus_spec(60), fm,
+                              torch.tensor(problem.lb, dtype=f64, device=dev),
+                              torch.tensor(problem.ub, dtype=f64, device=dev))
+    params = net.init_params(torch.Generator().manual_seed(SEED),
+                             annulus_spec(60), fm, dev, f64)
+    sample_fn, grids = sample.sampler_for(
+        sample.SamplerConfig(**BENCH_COUNTS), problem.bc_groups, problem.lb,
+        problem.ub, f64, dev)
+    data = sample_fn(torch.Generator(device=dev).manual_seed(SEED),
+                     torch.ones_like(grids[0]))
+    compiled = pde.compile_pde(problem.equation, problem.coords)
+    lw = torch.tensor([0.05, 0.0], dtype=f64, device=dev)
+    return pred, params, compiled, data, lw
+
+
+def phase_refmode(dev, card):
+    """5h-c: reference_residual_polar against the generic forward engine
+    in float64 on the card at bench.py's shape, and REF_STEPS reference
+    Adam steps lower the loss."""
+    import torch
+
+    from tpinn_torch.core import refmode
+
+    pred, params, compiled, data, lw = refmode_setup(dev)
+    z = data["x_col"]
+    f_ref = refmode.reference_residual_polar(lambda zz: pred(params, zz), z)
+    with torch.no_grad():
+        f_fwd = compiled.residual_fast(pred, params, z)
+    err = float((f_ref - f_fwd).abs().max())
+    check(f_ref.dtype == torch.float64 and bool(torch.allclose(
+        f_ref, f_fwd, rtol=REF_RTOL, atol=REF_ATOL)),
+          f"refmode: residual vs the forward engine, max abs err {err}")
+    opt, step = refmode.make_reference_adam_step(
+        refmode.make_reference_loss(pred))
+    state = opt.init(params)
+    one = torch.ones((), dtype=torch.float64, device=dev)
+    p = params
+    t0 = time.perf_counter()
+    for k in range(REF_STEPS):
+        p, state, info = step(p, state, data, lw, one)
+        if k == 0:
+            first = float(info[0])
+    last = float(info[0])
+    seconds = time.perf_counter() - t0
+    check(last < first, f"refmode: loss {first} -> {last} over {REF_STEPS} "
+                        f"steps")
+    print(f"  refmode at bench.py's shape (6x60 float64, {z.shape[0]} "
+          f"collocation points): reverse-over-reverse residual equals the "
+          f"forward engine's (max abs difference {err:.2e}, max |f| "
+          f"{float(f_fwd.abs().max()):.3e}); {REF_STEPS} reference Adam "
+          f"steps: loss {first:.6e} -> {last:.6e} in {seconds:.2f} s, on "
+          f"{card}")
+
+
+def phase_ensemble_patch(dev, card):
+    """Phase 5h: 5h-a (phase_ensemble), 5h-b (phase_patch), 5h-c
+    (phase_refmode).  Returns {path: launches}."""
+    by_path = phase_ensemble(dev, card)
+    by_path.update(phase_patch(dev, card))
+    phase_refmode(dev, card)
+    for k in KERNELS:
+        check(sum(by_path[f"ensemble_member_{i}"][k]
+                  for i in range(ENSEMBLE_K)) > 0,
+              f"{k} launched no time on the ensemble path")
+    check(by_path["patch_helmholtz_2d"]["adam"] > 0,
+          "adam launched no time on the patch path")
+    return by_path
+
+
+def ensemble_patch_timing(dev, card):
+    """Phase 6's 5h timings, synchronised host clock, medians of
+    TIMED_RUNS, alternating: the patched Adam step at 5h-b's shape (B3 on
+    the stacked vector through a launcher, against B3's plain version);
+    the reference-semantics step at bench.py's shape (float64, reverse
+    over reverse, plain Adam) against the kernel-engine step at that shape
+    (float32, B1 + B2 + B3)."""
+    import torch
+
+    from tpinn_torch import problems
+    from tpinn_torch.core import loss as loss_mod
+    from tpinn_torch.core import net, pde, refmode, sample
+    from tpinn_torch.core.patch import (PatchSpec, init_patch_params,
+                                        make_patch_predictor)
+
+    problem, spec = patch_cli_spec()
+    st = spec.stages[0]
+    mspec = net.MLPSpec(depth=st.depth, width=st.width)
+    pred = make_patch_predictor(mspec, PatchSpec(n=PATCH_N), problem.lb,
+                                problem.ub, pad_features=3, device=dev)
+    params = init_patch_params(torch.Generator().manual_seed(SEED), mspec,
+                               PatchSpec(n=PATCH_N), pad_features=3,
+                               device=dev)
+    sample_fn, grids = sample.sampler_for(
+        sample.SamplerConfig(n_col=spec.n_col, n_band=spec.n_band,
+                             n_adaptive=spec.n_adaptive, n_bd=spec.n_bd,
+                             grid=spec.grid),
+        problem.bc_groups, problem.lb, problem.ub, torch.float32, dev)
+    data = sample_fn(torch.Generator(device=dev).manual_seed(SEED),
+                     torch.ones_like(grids[0]))
+    loss_fn = loss_mod.make_loss(pred, pde.compile_pde(problem.equation,
+                                                       problem.coords))
+    lw = torch.tensor(spec.lw, device=dev)
+    with torch.no_grad():
+        ref = loss_fn(params, data, lw, torch.ones((), device=dev))[1][0]
+    ms = alternating_ms({
+        "b3": adam_step(loss_fn, params, data, lw, ref),
+        "plain": adam_step(loss_fn, params, data, lw, ref, plain=True)})
+    n_bd = sum(x.shape[0] for x in data["x_bd"])
+    print(f"  Adam step, patched helmholtz_2d ({PATCH_N[0]}x{PATCH_N[1]} "
+          f"patches of {st.depth}x{st.width}, {data['x_col'].shape[0]} "
+          f"collocation and {n_bd} boundary points, generic engine): "
+          f"with B3 {ms['b3']:.3f} ms, with B3's plain version "
+          f"{ms['plain']:.3f} ms (synchronised host clock, median of "
+          f"{TIMED_RUNS}, alternating), on {card}")
+    out = {"step_patch_helmholtz_2d": (ms["b3"], ms["plain"])}
+    del params, data
+
+    pred64, p64, _, data64, lw64 = refmode_setup(dev)
+    opt, ref_step = refmode.make_reference_adam_step(
+        refmode.make_reference_loss(pred64))
+    state = [p64, opt.init(p64)]
+    one = torch.ones((), dtype=torch.float64, device=dev)
+
+    def reference():
+        state[0], state[1], _ = ref_step(state[0], state[1], data64, lw64, one)
+
+    annulus = problems.annulus_laplace()
+    kpred, compiled, kparams, kdata, klw = loss_setup(
+        annulus, annulus_spec(60), dev, counts=BENCH_COUNTS)
+    with torch.no_grad():
+        kref = loss_mod.make_loss(kpred, compiled)(
+            kparams, kdata, klw, torch.ones((), device=dev))[1][0]
+    ms = alternating_ms({
+        "reference": reference,
+        "kernel": adam_step(loss_mod.make_loss(kpred, compiled,
+                                               engine="kernel"),
+                            kparams, kdata, klw, kref)})
+    print(f"  Adam step at bench.py's shape (6x60 soft-BC annulus, "
+          f"{kdata['x_col'].shape[0]} collocation points): reference "
+          f"semantics (float64, reverse over reverse, plain Adam) "
+          f"{ms['reference']:.3f} ms, kernel engine (float32, B1 + B2 + B3) "
+          f"{ms['kernel']:.3f} ms (synchronised host clock, median of "
+          f"{TIMED_RUNS}, alternating), on {card}")
+    out["step_refmode_bench"] = (ms["reference"], ms["kernel"])
+    return out
+
+
+def ensemble_patch_only() -> None:
+    """Phases 1, 2, 3c, 5h and its timing alone."""
+    import torch
+
+    card = card_line()
+    print(f"  card: {card}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda", 0)
+    phase("2. build")
+    phase_build()
+    phase("3c. B3 vs plain")
+    phase_b3(dev)
+    phase("5h. ensembles, patches, refmode")
+    phase_ensemble_patch(dev, card)
+    phase("6. ensemble, patch and refmode timing")
+    ensemble_patch_timing(dev, card)
+
+
+def patch_recipe() -> None:
+    """tpinn's FBPINN case as written (tests/test_patch.py): u =
+    sin(15πx) with 8 patches of 2x16 at 15,000 / 4,500 through run_patched
+    on the card; prints a PATCH_RECIPE line and fails unless rel-L2 <
+    PATCH_BAR."""
+    import torch
+
+    from tpinn_torch.core import sample
+    from tpinn_torch.core.patch import PatchSpec, run_patched
+    from tpinn_torch.core.train import ProblemSpec, StageSpec, TrainSpec
+
+    card = card_line()
+    print(f"  card: {card}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda", 0)
+    phase("2. build")
+    phase_build()
+    phase("5h. tpinn's FBPINN case as written")
+    w = 15 * math.pi
+    problem = ProblemSpec(
+        name="hf_poisson", equation=f"u_xx + {w * w}*sin({w}*x)",
+        coords=("x",), lb=(0.0,), ub=(1.0,),
+        bc_groups=(sample.BCGroup(lo=(0.0,), hi=(0.0,), value=0.0),
+                   sample.BCGroup(lo=(1.0,), hi=(1.0,), value=0.0)),
+        exact=lambda z: torch.sin(w * z))
+    spec = TrainSpec(
+        n_col=2048, n_band=0, n_adaptive=0, n_bd=32, testing_size=(512,),
+        lw=(1e-5, 0.0), grid=128, pad_features=3,
+        stages=(StageSpec(depth=2, width=16, scl=2.0, epsil=1.0,
+                          adam_epochs=15000, lbfgs_epochs=4500),),
+        log_every=5000, density_every=10**9, plateau_every=3000)
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run_patched(problem, spec, PatchSpec(n=(8,), overlap=0.5),
+                      print_log=True, device=dev)
+    seconds = time.perf_counter() - t0
+    print("PATCH_RECIPE " + json.dumps({
+        "rel_l2": res.rel_l2, "seconds": seconds,
+        "rows": int(res.history.shape[0]), "launches": read_launches(),
+        "card": card}), flush=True)
+    check(res.rel_l2 is not None and res.rel_l2 < PATCH_BAR,
+          f"patch recipe: rel-L2 {res.rel_l2} against the bar {PATCH_BAR}")
+
+
 def queued_ms(fn, blocker) -> float:
     """Device time per launch of ``fn`` in a queue of QUEUED launches: the
     host enqueues them while ``blocker`` (a long kernel) still runs, so the
@@ -3877,12 +4446,16 @@ def main() -> int:
     for k in KERNELS:
         check(sum(v[k] for v in inverse_launches.values()) > 0,
               f"{k} launched no time on the inverse path")
-    # the kernels line's launches: the three newest main paths, marching
-    # (B1, B2, B3), coupled systems (B3 only) and scalar inverse (B1, B2,
-    # B3), each read on its own
+
+    phase("5h. ensembles, patches, refmode (the ensemble and patch paths)")
+    ep_launches = phase_ensemble_patch(dev, card)
+    # the kernels line's launches: the four newest main paths, marching
+    # (B1, B2, B3), coupled systems (B3 only), scalar inverse (B1, B2, B3)
+    # and ensembles and patches (B1, B2, B3; B3 only), each read on its own
     launches = {k: sum(v[k] for v in (*march_launches.values(),
                                       *system_launches.values(),
-                                      *inverse_launches.values()))
+                                      *inverse_launches.values(),
+                                      *ep_launches.values()))
                 for k in KERNELS}
 
     phase("6. timing")
@@ -3892,6 +4465,7 @@ def main() -> int:
     mode_rows = b1_mode_times(dev)
     times.update(system_timing(dev, card))
     times.update(inverse_timing(dev, card))
+    times.update(ensemble_patch_timing(dev, card))
     for n in (65_536, 262_144):
         k_ms, p_ms = times[f"residual_{n}"]
         print(f"  residual N={n}: kernel {k_ms:.3f} ms vs plain {p_ms:.3f} ms "
@@ -3907,6 +4481,12 @@ def main() -> int:
     k_ms, g_ms = times["step_inverse_heat"]
     print(f"  Adam step (heat inverse): kernel route {k_ms:.3f} ms vs generic "
           f"engine {g_ms:.3f} ms, on {card}")
+    k_ms, p_ms = times["step_patch_helmholtz_2d"]
+    print(f"  Adam step (patched helmholtz_2d, 6x6): with B3 {k_ms:.3f} ms vs "
+          f"plain Adam {p_ms:.3f} ms, on {card}")
+    r_ms, k_ms = times["step_refmode_bench"]
+    print(f"  Adam step (bench.py's shape): reference semantics {r_ms:.3f} ms "
+          f"vs kernel engine {k_ms:.3f} ms, on {card}")
 
     print(f"  card: {card}")
     # the least time the card could take for each kernel's timed call: the
@@ -3959,12 +4539,14 @@ def main() -> int:
                                  **{f"system_{k}": v[src] for k, v in
                                     system_launches.items()},
                                  **{f"inverse_{k}": v[src] for k, v in
-                                    inverse_launches.items()}}, **extra})
+                                    inverse_launches.items()},
+                                 **{k: v[src] for k, v in
+                                    ep_launches.items()}}, **extra})
         k = kernels[-1]
         print(f"  {name}: {k['ms']:.4f} ms, bound {k['bound_ms']:.5f} ms by "
               f"{k['bound_by']} ({100 * k['bound_ms'] / k['ms']:.1f}% of the "
-              f"time), launches on the marching, system and inverse paths "
-              f"{launches[src]}, on {card}")
+              f"time), launches on the marching, system, inverse, ensemble "
+              f"and patch paths {launches[src]}, on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4001,6 +4583,10 @@ if __name__ == "__main__":
         inverse_only()
     elif sys.argv[1:2] == ["--inverse-recipe"]:
         inverse_recipe()
+    elif sys.argv[1:2] == ["--ensemble-patch-only"]:
+        ensemble_patch_only()
+    elif sys.argv[1:2] == ["--patch-recipe"]:
+        patch_recipe()
     elif sys.argv[1:2] == ["--determinism"] and len(sys.argv) <= 3:
         determinism(sys.argv[2] if len(sys.argv) == 3 else None)
     else:

@@ -419,3 +419,40 @@ def test_inverse_loss_gradient_on_card_matches_generic_engine(cuda_device):
     for k, (a, b) in enumerate(zip(grads["kernel"], grads["generic"])):
         assert bool(((a - b).abs() <= 2e-5 + 2e-3 * b.abs()).all()), (
             k, float((a - b).abs().max()), float(b.abs().max()))
+
+
+@pytest.mark.cuda
+def test_patched_residual_on_card_matches_cpu(cuda_device):
+    """The patched predictor (36 stacked 2x16 nets, 6x6 patches on 3
+    padded features) on the card against the same on the CPU: /predict in
+    float32 (rtol 1e-5, atol 1e-6), the Helmholtz residual through the
+    generic engine in float64 (rtol 1e-4; in float32 the windows' 1/h²
+    against k² u cancel), B1 launched no time."""
+    from tpinn_torch.core.patch import (PatchSpec, init_patch_params,
+                                        make_patch_predictor)
+
+    mspec = net.MLPSpec(depth=2, width=16)
+    patch = PatchSpec(n=(6, 6))
+    eq = "u_xx + u_yy + 400.0*u + 400.0*sin(20.0*x)*sin(20.0*y)"
+    compiled = pde.compile_pde(eq, ("x", "y"))
+    z = torch.rand((2_000, 2), generator=torch.Generator().manual_seed(3))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        for dtype in (torch.float32, torch.float64):
+            pred = make_patch_predictor(mspec, patch, (0.0, 0.0), (1.0, 1.0),
+                                        dtype, 3, dev)
+            params = init_patch_params(torch.Generator().manual_seed(0),
+                                       mspec, patch, dtype, 3, dev)
+            zz = z.to(dev, dtype)
+            before = mlp_taylor.LAUNCHES
+            with torch.no_grad():
+                out[str(dev), dtype] = (
+                    pred(params, zz).cpu(),
+                    compiled.residual_fast(pred, params, zz).cpu())
+            assert mlp_taylor.LAUNCHES == before
+    card, cpu = str(cuda_device), "cpu"
+    np.testing.assert_allclose(out[card, torch.float32][0],
+                               out[cpu, torch.float32][0], rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(out[card, torch.float64][1],
+                               out[cpu, torch.float64][1], rtol=1e-4)

@@ -180,33 +180,23 @@ GALERKIN = {"kind": "galerkin", "lb": [0.1, 0.0], "ub": [1.0, TWO_PI],
             "coeffs": [3.1e-3, -1.7e-3, 0.9e-3], "linearized": False}
 
 
-@pytest.mark.parametrize("what", ["deflation", "ensemble", "patch"])
+@pytest.mark.parametrize("what", ["deflation"])
 def test_unported_checkpoints_refused(tmp_path, what):
-    """Ensemble and patch checkpoints are refused; a deflation-corrected
-    one is served, with the correction subtracted (march records are
+    """No checkpoint kind is refused now: a deflation-corrected one is
+    served with the correction in ``deflation`` (march records are
     served: test_march_record_served_by_both_packages; system checkpoints:
     test_torch_system_train.py; scalar inverse checkpoints:
-    test_torch_inverse.py)."""
+    test_torch_inverse.py; ensemble records: test_torch_ensemble.py;
+    patch checkpoints: test_torch_patch.py)."""
     fm = jnet.feature_map_for(KINDS)
     s = jnet.MLPSpec(depth=2, width=8)
     p = jnet.init_params(jax.random.PRNGKey(0), s, fm)
     path = tmp_path / "params_stage_1.npz"
     meta = _meta([s])
-    meta.update({
-        "deflation": {"deflation": GALERKIN},
-        "patch": {"patch": {"n": [2, 2], "overlap": 0.2}},
-    }.get(what, {}))
+    meta.update({"deflation": GALERKIN})
     jckpt.save_pytree(path, p, meta=meta)
-    target = path
-    if what == "ensemble":
-        (tmp_path / f"{what}.json").write_text("{}")
-        target = tmp_path
-    if what == "deflation":
-        srv = tserve.PINNServer(str(target), "annulus_laplace", device="cpu")
-        assert srv.deflation == GALERKIN
-        return
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        tserve.PINNServer(str(target), "annulus_laplace", device="cpu")
+    srv = tserve.PINNServer(str(path), "annulus_laplace", device="cpu")
+    assert srv.deflation == GALERKIN
 
 
 @pytest.mark.parametrize("writer", ["tpinn", "tpinn_torch"])
@@ -399,6 +389,8 @@ def test_serve_path_imports_no_jax():
             "tpinn_torch.problems, tpinn_torch.problems.oracles, "
             "tpinn_torch.core.march, tpinn_torch.core.system, "
             "tpinn_torch.core.inverse, tpinn_torch.problems.systems, "
+            "tpinn_torch.core.ensemble, tpinn_torch.core.patch, "
+            "tpinn_torch.core.refmode, "
             "tpinn_torch.kernels.mlp_taylor, tpinn_torch.kernels._build; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'tpinn')))")

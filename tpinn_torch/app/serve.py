@@ -13,6 +13,7 @@ Run:  python -m tpinn_torch.app.serve --checkpoint out/params_stage_1.npz \
 API:
     POST /predict   {"points": [[r, t], ...]}      -> {"u": [...]}
     POST /residual  {"points": [[r, t], ...]}      -> {"f": [...]}
+    POST /uncertainty {"points": ...}  -> {"std": [...]}   (ensembles)
     GET  /health                                   -> {"ok": true, ...}
 
 Queries are padded to batch tiers (powers of two, at least 64), as the
@@ -45,9 +46,18 @@ the same way, with its equation and the recovered coefficients in the
 meta: served with no preset, ``/residual`` evaluated at the recovered
 values (through kernel B1 on the card), ``/health`` reporting them.
 
-Not ported yet, and refused with NotImplementedError rather than served
-wrong: ensembles (``ensemble.json``) and patch checkpoints.  ROADMAP.md
-Queue A item 13d brings them.
+An ensemble record (``ensemble.json``, core.ensemble.
+run_ensemble_training, the file or the directory that holds it;
+``--problem`` required) is served as the weighted sum of one sub-server
+per member, minus the record's ``deflation`` term when it has one; its
+``/residual`` takes the generic jvp engine on the composite, and
+``/uncertainty`` answers the weighted member spread
+``sqrt(Σ w_i (u_i − ū)²)``.
+
+An overlapping-patch checkpoint (core.patch.run_patched, ``patch`` in its
+meta) is served through the partition-of-unity predictor rebuilt from the
+meta, its parameters stacked on a leading patch axis; its derivatives
+take the generic jvp engine.
 """
 
 from __future__ import annotations
@@ -100,26 +110,23 @@ def _described_problem(meta: dict) -> SimpleNamespace:
         bc_groups=())
 
 
-def _refuse(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} checkpoints are not served by tpinn_torch yet (ROADMAP.md "
-        f"Queue A item {item}); serve them with tpinn.app.serve")
-
-
 class PINNServer:
     def __init__(self, checkpoint: str, problem_name: Optional[str] = None,
                  depth: Optional[int] = None, width: Optional[int] = None,
                  deflate: str = "off", *, device):
         self.device = _resolve_device(device)
+        self._spread = None
 
         cpath = Path(checkpoint)
-        if cpath.name == "ensemble.json" or (
-                cpath.is_dir() and (cpath / "ensemble.json").exists()):
-            _refuse("ensemble", "13d")
+        if cpath.is_dir() and (cpath / "ensemble.json").exists():
+            cpath = cpath / "ensemble.json"
         if cpath.is_dir() and (cpath / "march.json").exists():
             cpath = cpath / "march.json"
         if cpath.name == "march.json":
             self._load_march(cpath, problem_name)
+            return
+        if cpath.name == "ensemble.json":
+            self._load_ensemble(cpath, problem_name)
             return
 
         with np.load(checkpoint) as raw:
@@ -129,8 +136,6 @@ class PINNServer:
                         if k.endswith("/w")]
         sysm = meta.get("system")
         coefm = meta.get("coef") or {}
-        if meta.get("patch"):
-            _refuse("patch", "13d")
         problem = (problems.get_problem(problem_name)
                    if problem_name is not None else _described_problem(meta))
         self.problem = problem
@@ -169,7 +174,23 @@ class PINNServer:
             return net.init_params(torch.Generator().manual_seed(0), spec,
                                    fm, dev)
 
-        if "chain" in meta:
+        if meta.get("patch"):
+            # overlapping patches: the partition-of-unity predictor, its
+            # parameters stacked on a leading patch axis
+            from tpinn_torch.core.patch import (PatchSpec, init_patch_params,
+                                                make_patch_predictor)
+
+            pspec = PatchSpec(n=tuple(meta["patch"]["n"]),
+                              overlap=float(meta["patch"]["overlap"]))
+            mspec = net.spec_from_dict(meta["chain"][0])
+            pad = meta.get("pad_features", 0)
+            predictor = make_patch_predictor(
+                mspec, pspec, meta.get("lb", problem.lb),
+                meta.get("ub", problem.ub), pad_features=pad, device=dev)
+            template = init_patch_params(torch.Generator().manual_seed(0),
+                                         mspec, pspec, pad_features=pad,
+                                         device=dev)
+        elif "chain" in meta:
             # the full multilevel chain as trained: every stage's
             # act_first/scl/epsil from its saved spec, params nested
             # {"stage", "prev"}
@@ -249,6 +270,43 @@ class PINNServer:
         self.params = [s.params for s in subs]
         self.predictor = predictor
 
+    def _load_ensemble(self, record: Path, problem_name: Optional[str]):
+        """The convex combination of an ensemble record's member
+        checkpoints (their paths relative to the record's directory),
+        minus the record's correction; ``_spread`` for /uncertainty."""
+        from tpinn_torch.core.ensemble import _mean_predictor
+
+        if problem_name is None:
+            raise ValueError("ensemble serving needs --problem")
+        problem = problems.get_problem(problem_name)
+        self.problem = problem
+        self.compiled = pde.compile_pde(problem.equation, problem.coords)
+        self._coef = None
+        rec = json.loads(record.read_text())
+        subs = [PINNServer(str(record.parent / m), problem_name,
+                           device=self.device) for m in rec["members"]]
+        preds = tuple(s.predictor for s in subs)
+        wts = tuple(float(v) for v in rec["weights"])
+        predictor = _mean_predictor(wts, preds)
+        self.deflation = rec.get("deflation") or None
+        if self.deflation:
+            term = polish.deflation_term(self.deflation)
+            mean = predictor
+            predictor = lambda p, z: mean(p, z) - term(z)
+
+        def spread(params_list, z):
+            # weighted std across members: the epistemic band the
+            # ensemble disagrees by (convex weights, Σw = 1)
+            vals = torch.stack([f(p, z) for f, p in zip(preds, params_list)])
+            w = torch.tensor(wts, dtype=vals.dtype,
+                             device=vals.device)[:, None, None]
+            mean_u = torch.sum(w * vals, dim=0)
+            return torch.sqrt(torch.sum(w * (vals - mean_u) ** 2, dim=0))
+
+        self.params = [s.params for s in subs]
+        self.predictor = predictor
+        self._spread = spread
+
     def _predict(self, z: torch.Tensor) -> torch.Tensor:
         return self.predictor(self.params, z)
 
@@ -292,6 +350,14 @@ class PINNServer:
     def residual(self, points):
         return self._eval(self._residual, points)
 
+    def uncertainty(self, points):
+        """Per-point epistemic spread (weighted member std) — ensemble
+        records only."""
+        if self._spread is None:
+            raise ValueError("uncertainty needs an ensemble checkpoint "
+                             "(serve an ensemble.json directory)")
+        return self._eval(lambda z: self._spread(self.params, z), points)
+
 
 def make_handler(server: PINNServer):
     class Handler(BaseHTTPRequestHandler):
@@ -327,6 +393,8 @@ def make_handler(server: PINNServer):
                     self._json({"u": server.predict(points)})
                 elif self.path == "/residual":
                     self._json({"f": server.residual(points)})
+                elif self.path == "/uncertainty":
+                    self._json({"std": server.uncertainty(points)})
                 else:
                     self._json({"error": "not found"}, 404)
             except Exception as e:  # request boundary: report, keep serving
@@ -341,7 +409,8 @@ def main():  # pragma: no cover
     p.add_argument("--checkpoint", required=True)
     p.add_argument("--problem", default=None,
                    help="problem preset (optional for a system or inverse "
-                        "checkpoint, whose meta describes it)")
+                        "checkpoint, whose meta describes it; required for "
+                        "march and ensemble records)")
     p.add_argument("--port", type=int, default=8060)
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' fails without a card")

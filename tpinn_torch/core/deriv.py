@@ -13,6 +13,9 @@ multi-index a compiled residual reads.  This engine takes any callable:
 it serves the lift/bubble factors of the hard-BC product rule, every
 predictor that kernel B1 does not take, and it is the kernel's second
 oracle on the card.
+
+``vect_grad_reverse`` is the reference solver's reverse-mode batch
+Jacobian, nested for second derivatives by core.refmode.
 """
 
 from __future__ import annotations
@@ -118,3 +121,27 @@ def partials(
         out[()] = f(z)
 
     return out
+
+
+# ---------------------------------------------------------------------------
+# Reference-semantics engine (reverse-over-reverse): the reference solver's
+# batched Jacobian, for core.refmode and the parity tests.
+# ---------------------------------------------------------------------------
+
+
+def vect_grad_reverse(func: Callable[[Tensor], Tensor], z: Tensor):
+    """Batch Jacobian by reverse mode with one-hot cotangents.
+
+    Returns ``(grad [N, m*d], sol [N, m])`` in the reference's column
+    layout (output-major): column ``o*d + i`` is d(out_o)/d(z_i).  Built
+    on ``torch.func.vjp`` with ``torch.func.vmap`` over the m cotangents,
+    so it nests: a call on a function of another call's gradient gives
+    second derivatives, and autograd reaches tensors ``func`` closes over.
+    """
+    sol, vjp_fn = torch.func.vjp(func, z)
+    n, m = sol.shape
+    eye = torch.eye(m, dtype=sol.dtype, device=sol.device)
+    cotangents = eye[:, None, :].expand(m, n, m)
+    (grad_rows,) = torch.func.vmap(vjp_fn)(cotangents)  # [m, N, d]
+    grad_all = grad_rows.transpose(0, 1).reshape(n, z.shape[1] * m)
+    return grad_all, sol

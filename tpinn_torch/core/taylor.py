@@ -245,7 +245,10 @@ def attach_sum_meta(predictor, prev_predictor, stage_predictor):
 
 
 def attach_frozen_meta(frozen, predictor, params):
-    """Freeze params into a z-only callable, keeping fused-partials access."""
+    """Freeze params into a z-only callable, keeping fused-partials access
+    and the ``(predictor, params)`` pair it closes over (``tpinn_frozen``:
+    core.ensemble recasts a member's parameters for its float64 passes)."""
+    frozen.tpinn_frozen = (predictor, params)
     parts = getattr(predictor, "tpinn_partials", None)
     if parts is not None:
         frozen.tpinn_frozen_partials = lambda z, indices: parts(
