@@ -211,6 +211,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
    annulus, 6x60 float64, 5,200 points) reference_residual_polar against
    the forward engine's residual_fast (rtol 1e-8, atol 1e-10) and 30
    reference Adam steps lower the loss.
+5i. The online calculator (the calculator slice's path): the port's lite
+   web app (tpinn_torch.app.lite) in a thread, its SessionManager on the
+   card; tpinn's __main__ demo request (polar Laplace on the annulus,
+   6x60 tanh, 3,000 + 1,000 + 1,000 points, a 111x111 test grid, then the
+   6x50 sin correction stage) at its full width and batch, its budgets
+   cut (CALC_CUT: 200 / 100 a first stage against 1,000 / 1,000), POSTed
+   to /api/start and /api/status polled to done: launch counts reset
+   before and read after (B1 and B2 at least once per Adam step, B3 once,
+   through the launchers), the 11 artifacts and 2 checkpoints, every
+   /api/figure tab of its type with finite data, rel-L2 of the stage-2
+   field against u = log(r)/log(0.1) equal to the logged one.  Then two
+   sessions started together, adam_precision "default" and "highest":
+   both running at first, one logs that it waits for the device, each
+   Adam phase runs under its own TF32 setting, the two sessions' phases
+   do not interleave, and allow_tf32 ends as it began.  Then `python -m
+   tpinn_torch train --problem poisson_1d --device cuda` at a cut budget
+   in its own process, its JSON line parsed.
 6. Timing (medians of synchronised runs): B1 inside the residual at the
    serving shapes; B1 alone against its plain version at the served
    262,144 points, the recipe's batch and L-BFGS grid (46,000, 202,500)
@@ -254,6 +271,7 @@ of the smoke):
     python3 chip_smoke.py --inverse-recipe     # the heat run as `tpinn invert`
     python3 chip_smoke.py --ensemble-patch-only # phases 2, 3c, 5h, its timing
     python3 chip_smoke.py --patch-recipe       # tpinn's FBPINN case as written
+    python3 chip_smoke.py --calculator-only    # phase 5i, kernels built in it
     python3 chip_smoke.py --determinism [DIR]  # warned ops of 5c's training
 
 The compares time the kernel at phase 6's shapes in DIR (say a git
@@ -286,10 +304,10 @@ fails unless |lam - 1| < 1e-2 (the bar of tests/test_inverse.py).
 tests/test_patch.py).
 
 The line before the last is a JSON object describing the kernels (each
-with its launches on the four newest main paths, phase 5e's three
-marching recipes, phase 5f's coupled systems, phase 5g's inverse runs
-and phase 5h's ensemble members and patched run together, and on every
-path by name, its time, its plain version's, the card's bound for the
+with its launches on the five newest main paths, phase 5e's three
+marching recipes, phase 5f's coupled systems, phase 5g's inverse runs,
+phase 5h's ensemble members and patched run and phase 5i's demo session
+together, and on every path by name, its time, its plain version's, the card's bound for the
 same work and, where one PyTorch call computes the same function, that
 call's time; B1 and B2 with every timed shape and its plan under
 "shapes", B1's times around the call, with its device and host times
@@ -311,6 +329,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.parse
 import urllib.request
 from http.server import ThreadingHTTPServer
 from pathlib import Path
@@ -422,6 +441,30 @@ PATCH_BAR = 2e-2    # rel-L2 of --patch-recipe (tests/test_patch.py)
 REF_STEPS = 30
 REF_RTOL, REF_ATOL = 1e-8, 1e-10
 SERVE_RTOL, SERVE_ATOL = 1e-5, 1e-6  # served /predict vs the trainer's
+# phase 5i: tpinn's __main__ demo request (tpinn/core/train.py:1771-1791)
+# posted to the port's lite calculator at its full width and batch: 6x60
+# tanh, 3,000 + 1,000 + 1,000 points, a 111x111 test grid, then the 6x50
+# sin correction stage at twice the points.  (adam, lbfgs) of the first
+# stage cut from 1,000 / 1,000 (the second stage takes three times the
+# first's); the two overlapping sessions at a smaller cut; the CLI run of
+# poisson_1d at the CLI's width and batch, cut from 8,000 / 3,000
+CALC_CUT = (200, 100)
+CALC_PAIR_CUT = (50, 30)
+CALC_CLI_CUT = (300, 150)
+CALC_TIMEOUT = 300  # seconds a calculator session or the CLI run may take
+# the demo leaves u free in t (no condition in t, and the periodic feature
+# is 2*pi-periodic on t in [0, 1]), so rel-L2 against log(r)/log(0.1) says
+# little; its gates: U on each Dirichlet column (u = 1 at r = 0.1, 0 at
+# r = 1) within a tenth of the jump between them (RMS), the correction
+# stage's residual RMS at most half the first stage's, and the demo's
+# rel-L2 within a factor of the same run's with each kernel's plain
+# version in its place (plain_kernels)
+CALC_BC_TOL = 0.1
+CALC_RESID_DROP = 0.5
+CALC_WITNESS = 2.0
+CALC_FIGURES = {"colloc": "heatmap_scatter", "solution": "dual_heatmap",
+                "error": "heatmap", "loss": "lines_log",
+                "boundary": "lines_log_pair", "spectrum": "heatmap"}
 QUEUED = 100        # back-to-back launches timed behind a long kernel
 # B3 past one grid of 132 SMs x 4 blocks x 256 threads: its threads loop
 LOOP_N = 140_001
@@ -629,7 +672,7 @@ def phase_kernel_vs_plain(dev, gen):
     worst_abs = 0.0
     modes, chunked = set(), False
     paths = [case[:-1] for case in march_kernel_cases()
-             + inverse_kernel_cases()]
+             + inverse_kernel_cases() + calculator_kernel_cases()]
     for name, spec, fm, lo, hi, streams, n in (kernel_cases() + paths
                                                + b1_mode_cases()):
         dims = [fm.num_features] + [spec.width] * spec.depth + [1]
@@ -724,11 +767,12 @@ def phase_b2(dev, gen):
                   net.MLPSpec(depth=3, width=256),
                   net.feature_map_for(("minmax", "periodic")), (0.1, 0.0),
                   (1.0, 2 * math.pi), IDX5))
-    # the marching windows and the inverse cases' net at their batch
-    # (phases 5e's and 5g's B2 launches)
+    # the marching windows, the inverse cases' net and the calculator's
+    # two stages at their batch (phases 5e's, 5g's and 5i's B2 launches)
     cases += [(n, name, spec, fm, lo, hi, streams) for
               name, spec, fm, lo, hi, streams, n, backward in
-              march_kernel_cases() + inverse_kernel_cases() if backward]
+              march_kernel_cases() + inverse_kernel_cases()
+              + calculator_kernel_cases() if backward]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     lib = _build.load("taylor2_bwd")
     lib.tpinn_taylor2_bwd_smem.restype = ctypes.c_longlong
@@ -826,27 +870,30 @@ def phase_b2(dev, gen):
     return worst_abs
 
 
+def cli_args(*argv):
+    """A `python -m tpinn_torch` command line, parsed by the port's CLI."""
+    from tpinn_torch import cli
+
+    return cli.build_parser().parse_args([str(a) for a in argv])
+
+
 def system_spec(name, adam_epochs=None, lbfgs_epochs=None, **spec_kw):
-    """SYSTEM_RECIPES[name] as tpinn's CLI builds it (`tpinn system --name
-    NAME --recipe`, tpinn/cli.py:233-249): one stage of depth x width,
-    scl = epsil = 1, n_band 0, lw (1, 0), seed 1234, pad_features 3; the
-    budgets replaced where given, and the TrainSpec fields of spec_kw."""
+    """SYSTEM_RECIPES[name] as `python -m tpinn_torch system --name NAME
+    --recipe` builds it (cli.system_spec, tpinn's CLI field for field):
+    one stage of depth x width, scl = epsil = 1, n_band 0, lw (1, 0), seed
+    1234, pad_features 3; the budgets replaced where given, and the
+    TrainSpec fields of spec_kw."""
     import dataclasses
 
-    from tpinn_torch.core.train import StageSpec, TrainSpec
-    from tpinn_torch.problems.systems import SYSTEM_RECIPES
+    from tpinn_torch import cli
 
-    rec = SYSTEM_RECIPES[name]
-    spec = TrainSpec(
-        n_col=rec["n_col"], n_band=0, n_adaptive=rec["n_adaptive"],
-        n_bd=rec["n_bd"], lw=(1.0, 0.0), seed=1234, pad_features=3,
-        stages=(StageSpec(
-            depth=rec["depth"], width=rec["width"], scl=1.0, epsil=1.0,
-            adam_epochs=(rec["adam"] if adam_epochs is None
-                         else adam_epochs),
-            lbfgs_epochs=(rec["lbfgs"] if lbfgs_epochs is None
-                          else lbfgs_epochs)),))
-    return dataclasses.replace(spec, **spec_kw)
+    _, spec = cli.system_spec(cli_args("system", "--name", name, "--recipe"))
+    st = spec.stages[0]
+    st = dataclasses.replace(
+        st, adam_epochs=st.adam_epochs if adam_epochs is None else adam_epochs,
+        lbfgs_epochs=(st.lbfgs_epochs if lbfgs_epochs is None
+                      else lbfgs_epochs))
+    return dataclasses.replace(spec, stages=(st,), **spec_kw)
 
 
 def inverse_case():
@@ -915,35 +962,28 @@ def system_adam_sizes():
 
 
 def invert_spec(name, adam_epochs=None, lbfgs_epochs=None, **spec_kw):
-    """INVERSE_CASES[name] as tpinn's CLI builds it (`tpinn invert
-    --problem P --equation E --param lam=INIT [--normalize N]`,
-    tpinn/cli.py:173-214): the preset with its equation replaced (in eigen
-    mode its oracle dropped: it solves the original equation), and the
-    CLI's defaults: 4x32, scl = epsil = 1, n_col 2,000, n_band 0,
-    n_adaptive 500, n_bd 100, n_obs 200, lw (1, 0), seed 1234,
-    pad_features 3, adam 4,000, lbfgs 3,000; the budgets replaced where
-    given, and the TrainSpec fields of spec_kw.  Returns (problem,
-    InverseSpec, TrainSpec)."""
+    """INVERSE_CASES[name] as `python -m tpinn_torch invert --problem P
+    --equation E --param lam=INIT [--normalize N]` builds it
+    (cli.invert_spec, tpinn's CLI field for field): the preset with its
+    equation replaced (in eigen mode its oracle dropped: it solves the
+    original equation), and the CLI's defaults: 4x32, scl = epsil = 1,
+    n_col 2,000, n_band 0, n_adaptive 500, n_bd 100, n_obs 200, lw (1, 0),
+    seed 1234, pad_features 3, adam 4,000, lbfgs 3,000; the budgets
+    replaced where given, and the TrainSpec fields of spec_kw.  Returns
+    (problem, InverseSpec, TrainSpec)."""
     import dataclasses
 
-    from tpinn_torch import problems
-    from tpinn_torch.core.inverse import InverseSpec
-    from tpinn_torch.core.train import StageSpec, TrainSpec
+    from tpinn_torch import cli
 
     preset, equation, coef, normalize, _ = INVERSE_CASES[name]
-    problem = dataclasses.replace(problems.get_problem(preset),
-                                  equation=equation)
-    if normalize > 0:
-        problem = dataclasses.replace(problem, exact=None)
-    inv = InverseSpec(params=tuple(coef), init=tuple(coef.values()),
-                      n_obs=200, normalize=normalize)
-    spec = TrainSpec(
-        n_col=2000, n_band=0, n_adaptive=500, n_bd=100, lw=(1.0, 0.0),
-        seed=1234, pad_features=3,
-        stages=(StageSpec(
-            depth=4, width=32, scl=1.0, epsil=1.0,
-            adam_epochs=4000 if adam_epochs is None else adam_epochs,
-            lbfgs_epochs=3000 if lbfgs_epochs is None else lbfgs_epochs),))
+    argv = ["invert", "--problem", preset, "--equation", equation,
+            "--normalize", normalize]
+    for k, v in coef.items():
+        argv += ["--param", f"{k}={v!r}"]
+    for flag, value in (("--adam", adam_epochs), ("--lbfgs", lbfgs_epochs)):
+        if value is not None:
+            argv += [flag, value]
+    problem, inv, spec = cli.invert_spec(cli_args(*argv))
     return problem, inv, dataclasses.replace(spec, **spec_kw)
 
 
@@ -1029,18 +1069,19 @@ def phase_b3(dev):
     n = ADAM_N, 1,001 (one element a thread), LOOP_N (the threads loop),
     the marching windows' parameter count, the system path's vectors
     (system_adam_sizes: 17,091, 37,826, 1 and the inverse case's leaves),
-    the inverse path's (inverse_adam_sizes: 3,330 and the leaves) and the
-    patch path's stacked vectors (patch_adam_sizes: 468,036 and 2,824), on
-    aligned vectors and on views one float off alignment; then the graph
-    check."""
+    the inverse path's (inverse_adam_sizes: 3,330 and the leaves), the
+    patch path's stacked vectors (patch_adam_sizes: 468,036 and 2,824) and
+    the calculator's stage trees (calculator_adam_sizes: 18,601 and
+    31,602), on aligned vectors and on views one float off alignment; then
+    the graph check."""
     import torch
 
     from tpinn_torch.kernels import adam
 
     worst_abs = 0.0
     sizes = {*march_adam_sizes(), *system_adam_sizes(),
-             *inverse_adam_sizes(), *patch_adam_sizes()} - {ADAM_N, 1_001,
-                                                             LOOP_N}
+             *inverse_adam_sizes(), *patch_adam_sizes(),
+             *calculator_adam_sizes()} - {ADAM_N, 1_001, LOOP_N}
     for n in (ADAM_N, 1_001, LOOP_N, *sorted(sizes)):
         for offset in (0, 1):
             gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1279,10 +1320,12 @@ def post(base, route, points):
 
 
 @contextlib.contextmanager
-def http_server(srv):
-    """Serve ``srv`` over HTTP on a free localhost port for the block;
-    yields the base URL and stops the server thread after it."""
-    from tpinn_torch.app.serve import make_handler
+def http_server(srv, make_handler=None):
+    """Serve ``srv`` over HTTP on a free localhost port for the block
+    (through app.serve's handler, or ``make_handler``'s); yields the base
+    URL and stops the server thread after it."""
+    if make_handler is None:
+        from tpinn_torch.app.serve import make_handler
 
     httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(srv))
     th = threading.Thread(target=httpd.serve_forever, daemon=True)
@@ -2944,21 +2987,21 @@ def ensemble_kernel_cases():
 
 
 def patch_cli_spec(adam_epochs=8000, lbfgs_epochs=3000, **spec_kw):
-    """helmholtz_2d and its TrainSpec as `tpinn train --problem helmholtz_2d
-    --patches 6x6` builds them at the CLI's defaults (tpinn/cli.py): a 6x50
-    tanh net per patch on 3 padded features, 3,000 + 500 + 1,000 points
-    and 100 per BC group a step, lw (1, 0), seed 1234; the TrainSpec
-    fields of ``spec_kw`` replaced."""
-    from tpinn_torch import problems
-    from tpinn_torch.core.train import StageSpec, TrainSpec
+    """helmholtz_2d and its TrainSpec as `python -m tpinn_torch train
+    --problem helmholtz_2d --patches 6x6` builds them at the CLI's
+    defaults (cli.train_spec, tpinn's CLI field for field): a 6x50 tanh
+    net per patch on 3 padded features, 3,000 + 500 + 1,000 points and 100
+    per BC group a step, lw (1, 0), seed 1234; the TrainSpec fields of
+    ``spec_kw`` replaced."""
+    import dataclasses
 
-    spec = TrainSpec(n_col=3000, n_band=500, n_adaptive=1000, n_bd=100,
-                     lw=(1.0, 0.0), seed=1234, pad_features=3,
-                     stages=(StageSpec(depth=6, width=50, scl=1.0,
-                                       epsil=1.0, adam_epochs=adam_epochs,
-                                       lbfgs_epochs=lbfgs_epochs),),
-                     **spec_kw)
-    return problems.get_problem("helmholtz_2d"), spec
+    from tpinn_torch import cli
+
+    problem, spec = cli.train_spec(cli_args(
+        "train", "--problem", "helmholtz_2d", "--patches",
+        "x".join(map(str, PATCH_N)), "--adam", adam_epochs, "--lbfgs",
+        lbfgs_epochs))
+    return problem, dataclasses.replace(spec, **spec_kw)
 
 
 def patch_adam_sizes():
@@ -3441,6 +3484,432 @@ def patch_recipe() -> None:
         "card": card}), flush=True)
     check(res.rel_l2 is not None and res.rel_l2 < PATCH_BAR,
           f"patch recipe: rel-L2 {res.rel_l2} against the bar {PATCH_BAR}")
+
+
+def calculator_nets():
+    """The demo request's run as run_pinn_training builds it
+    (train.ui_problem_spec): (problem, spec, feature map, stream plan,
+    [(MLPSpec, batch) a stage]).  The stages are the 6x60 tanh net and the
+    6x50 sin correction on the polar features (r, cos t, sin t); a stage's
+    batch is n_col + n_band + n_adaptive + n_bd per BC group, each scaled
+    by its sample_scale (5,200 and 10,400 points).  The correction's scl
+    and epsil come from stage 1's errors at run time; they change no
+    shape, and the specs take the demo's (about 1.7 and 0.1)."""
+    from tpinn_torch.core import net, pde, taylor
+    from tpinn_torch.core.train import ui_problem_spec
+
+    problem, spec, _, _ = ui_problem_spec(**calculator_request(*CALC_CUT))
+    fm = net.feature_map_for(problem.feature_kinds, pad_to=spec.pad_features)
+    streams = taylor.plan_streams(
+        pde.compile_pde(problem.equation, problem.coords).indices)
+    stages = []
+    for st in spec.stages:
+        sc = st.sample_scale
+        batch = (int(spec.n_col * sc) + int(spec.n_band * sc)
+                 + int(spec.n_adaptive * sc)
+                 + int(spec.n_bd * sc) * len(problem.bc_groups))
+        stages.append((net.MLPSpec(
+            depth=st.depth, width=st.width, act_first=st.act_first,
+            act_hidden=st.act_hidden, scl=1.7 if st.scl is None else st.scl,
+            epsil=0.1 if st.epsil is None else st.epsil), batch))
+    return problem, spec, fm, streams, stages
+
+
+def calculator_kernel_cases():
+    """(name, spec, fm, lb, ub, streams, N, backward) of phases 3a and 3b
+    for the calculator path (phase 5i, calculator_nets): each stage's net
+    at its own batch (B1 and B2: the Adam steps and L-BFGS evaluations),
+    the first stage's net also at the second's batch (B1: the frozen stage
+    under the correction), and both nets at the density grid and the test
+    grid (B1: the density refreshes, the stage diagnostics and the
+    artifacts; 111^2 points each in the demo)."""
+    problem, spec, fm, streams, stages = calculator_nets()
+    grids = sorted({spec.grid ** problem.dim, math.prod(spec.testing_size)})
+    cases = []
+    for k, (mspec, batch) in enumerate(stages):
+        sizes = [(batch, f"stage {k + 1}'s batch", True)]
+        sizes += [(n, f"stage {j + 1}'s batch, frozen", False)
+                  for j, (_, n) in enumerate(stages) if j > k]
+        sizes += [(n, "the density and test grid", False) for n in grids]
+        for n, what, backward in sizes:
+            cases.append((f"calculator stage {k + 1} {mspec.depth}x"
+                          f"{mspec.width} {mspec.act_first}, {what}", mspec,
+                          fm, problem.lb, problem.ub, streams, n, backward))
+    return cases
+
+
+def calculator_adam_sizes():
+    """The vectors B3 updates on the calculator path, a stage's parameter
+    tree raveled (the flat layout): 18,601 floats for the 6x60 net on the
+    3 polar features, then 31,602 for the correction's tree, which holds
+    the 6x50 net (13,001) beside the frozen first stage (its gradient
+    zero).  Phase 3c holds them."""
+    import torch
+
+    from tpinn_torch.core import net
+
+    _, _, fm, _, stages = calculator_nets()
+    sizes, total = [], 0
+    for mspec, _ in stages:
+        total += sum(t.numel() for t in leaves_of(net.init_params(
+            torch.Generator().manual_seed(SEED), mspec, fm, "cpu")))
+        sizes.append(total)
+    return sizes
+
+
+def calculator_request(adam, lbfgs, **options):
+    """tpinn's __main__ demo as the calculator's page posts it (its form's
+    defaults), with the first stage's budgets ``adam`` / ``lbfgs`` and the
+    advanced ``options``."""
+    return {
+        "equation": "u_rr + 1/r*u_r + 1/r**2*u_tt",
+        "boundary": {"bd_x1_min": 0.1, "bd_x1_max": 0.1, "bd_y1_min": 0,
+                     "bd_y1_max": 1, "bd_u1": 1,
+                     "bd_x2_min": 1, "bd_x2_max": 1, "bd_y2_min": 0,
+                     "bd_y2_max": 1, "bd_u2": 0},
+        "domain": {"x_min": 0.1, "x_max": 1, "y_min": 0, "y_max": 1},
+        "scl": 1, "epsil": 1,
+        "sample_points": {"n_col": 3000, "n_bd": 1000, "n_add": 1000},
+        "network_size": {"depth": 60, "width": 6},
+        "testing_size": {"x": 111, "y": 111},
+        "epochs": {"adam": adam, "lbfgs": lbfgs},
+        "equation_weight": {"f": 0.05, "df": 0},
+        "options": options,
+    }
+
+
+def get_json(base, path):
+    with urllib.request.urlopen(base + path, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def start_session(base, session, request):
+    body = json.dumps({"session": session, **request}).encode()
+    req = urllib.request.Request(base + "/api/start", data=body,
+                                 method="POST")
+    with urllib.request.urlopen(req, timeout=60) as r:
+        reply = json.loads(r.read())
+    check(reply == {"ok": True}, f"/api/start {session}: {reply}")
+
+
+def wait_session(base, session):
+    """Polls /api/status until the session ends; its log lines."""
+    deadline = time.monotonic() + CALC_TIMEOUT
+    while True:
+        st = get_json(base, f"/api/status?session={session}")
+        if st["status"] in ("done", "error"):
+            break
+        check(time.monotonic() < deadline,
+              f"session {session} still {st['status']} after "
+              f"{CALC_TIMEOUT} s")
+        time.sleep(0.25)
+    check(st["status"] == "done", f"session {session} ended "
+          f"{st['status']}: {st['error']}\n{st['log'][-3000:]}")
+    return st["log"].splitlines()
+
+
+def finite_payload(payload) -> bool:
+    """Every number of a figure payload's data is finite."""
+    import numpy as np
+
+    arrays = [payload[k] for k in ("x", "y", "z", "z1", "z2", "points_x",
+                                   "points_y") if k in payload]
+    arrays += [s["y"] for s in payload.get("series", [])]
+    return all(np.isfinite(np.asarray(a, dtype=np.float64)).all()
+               for a in arrays)
+
+
+def phase_calculator(dev, card):
+    """Phase 5i: the online calculator.  The lite server with
+    SessionManager(device="cuda") in a thread; the demo request at full
+    width posted to /api/start and polled to done; B1/B2 at least once per
+    Adam step and B3 once, through the launchers, each at a shape phases
+    3a-3c hold (calculator_kernel_cases, calculator_adam_sizes); the 11
+    artifacts and every figure tab; rel-L2 against the polar oracle, the
+    Dirichlet columns, the error artifact, the correction's residual drop,
+    and the same run through the plain derivatives.  Then two sessions
+    started together (adam_precision "default" and "highest"): one waits
+    for the device, each Adam phase runs under its own TF32 setting and
+    the flag ends as it began.  Then `python -m tpinn_torch train --problem
+    poisson_1d --device cuda` in a subprocess.  Returns the demo session's
+    launches."""
+    import numpy as np
+    import torch
+
+    from tpinn_torch.app import lite
+    from tpinn_torch.app.controller import SessionManager
+    from tpinn_torch.app.figure_data import FIGURES
+    from tpinn_torch.core import train
+    from tpinn_torch.utils import artifacts
+
+    t_phase = time.perf_counter()
+    root = SMOKE_DIR / "calculator"
+    shutil.rmtree(root, ignore_errors=True)
+    mgr = SessionManager(str(root), device=dev)
+    with http_server(mgr, lite.make_handler) as base:
+        page = urllib.request.urlopen(base + "/", timeout=60).read().decode()
+        check("Start Training" in page, "the calculator's page")
+        req = calculator_request(*CALC_CUT)
+        check(get_json(base, "/api/validate?eq=" + urllib.parse.quote(
+            req["equation"]))["valid"], "the demo equation does not validate")
+
+        held = held_shapes(calculator_kernel_cases())
+        reset_launches()
+        t0 = time.perf_counter()
+        with adam_launchers() as built, kernel_shapes() as shapes:
+            start_session(base, "demo", req)
+            lines = wait_session(base, "demo")
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        for line in lines:
+            print(f"  | {line}")
+        n_adam = [int(m.group(1)) for m in
+                  (re.search(r"Adam done \((\d+) steps", ln) for ln in lines)
+                  if m]
+        check(len(n_adam) == 2, f"Adam phases logged: {n_adam}")
+        print(f"  demo session (6x60 then 6x50 sin, budgets {CALC_CUT} a "
+              f"first stage): {seconds:.1f} s, Adam steps {n_adam}, "
+              f"launches {launches}, on {card}")
+        for k in ("taylor2_fwd", "taylor2_bwd"):
+            check(launches[k] >= sum(n_adam),
+                  f"{k} launched {launches[k]} times for {sum(n_adam)} Adam "
+                  f"steps")
+        check_adam_route("calculator", built, launches["adam"], n_adam)
+        # every launch of the path at a shape phases 3a-3c hold against the
+        # plain versions
+        for k in ("taylor2_fwd", "taylor2_bwd"):
+            check(sum(c for key, c in shapes.items() if key[0] == k)
+                  == launches[k], f"calculator: {k} shapes recorded for "
+                                  f"{launches[k]} launches")
+        check_held("calculator", shapes, held)
+        sizes = [x.p.numel() for x in built]
+        check(sizes == calculator_adam_sizes(),
+              f"calculator: B3 launchers on vectors of {sizes}")
+        print(f"  calculator: B3 on vectors of {sizes} parameters, a stage "
+              f"each (held in phase 3c)")
+
+        out = mgr.session_dir("demo")
+        for name in artifacts.ARTIFACT_NAMES + ["params_stage_1.npz",
+                                                "params_stage_2.npz"]:
+            check((out / name).exists(), f"calculator: missing {name}")
+        with np.load(out / "collocation_point_1.npz") as d:
+            n_col = d["X_col"].shape[0]
+            check(d["X_col"].shape[1] == 2 and n_col >= 5000,
+                  f"collocation points {d['X_col'].shape}")
+        for name in FIGURES:
+            fig = get_json(base, f"/api/figure?session=demo&name={name}")
+            want = CALC_FIGURES[name.split("_")[0]]
+            check(fig["type"] == want and finite_payload(fig),
+                  f"/api/figure {name}: {fig['type']} (want {want})")
+        with np.load(out / "solution_residual_2.npz") as d:
+            U, r = d["U"].astype(np.float64), d["r"].astype(np.float64)
+        check(U.shape == (111, 111), f"U shape {U.shape}")
+        exact = np.broadcast_to(np.log(r) / np.log(0.1), U.shape)
+        rel = float(np.linalg.norm(U - exact) / np.linalg.norm(exact))
+        logged = [float(ln.rsplit(":", 1)[1]) for ln in lines
+                  if ln.startswith("final rel-L2 vs analytic")]
+        check(math.isfinite(rel) and rel < 1.0 and len(logged) == 1
+              and abs(rel - logged[0]) <= 1e-3 * logged[0],
+              f"rel-L2 {rel} against the polar oracle, logged {logged}")
+        print(f"  {len(artifacts.ARTIFACT_NAMES)} artifacts, 2 checkpoints "
+              f"and {len(FIGURES)} figure payloads ({n_col:,} collocation "
+              f"points a stage-1 draw); rel-L2 against u = log(r)/log(0.1) "
+              f"on the 111x111 grid {rel:.4e} (logged {logged[0]:.4e})")
+        calculator_gates(dev, lines, out, req, rel, card)
+
+        # two overlapping sessions: they take turns on the device, and the
+        # process-wide TF32 flag follows each Adam phase and ends as it began
+        before = torch.backends.cuda.matmul.allow_tf32
+        seen = []
+        inner = train.adam_matmul_precision
+
+        @contextlib.contextmanager
+        def spy(name):
+            with inner(name):
+                seen.append((name, torch.backends.cuda.matmul.allow_tf32))
+                yield
+
+        train.adam_matmul_precision = spy
+        try:
+            t0 = time.perf_counter()
+            pair = (("tf32", "default"), ("fp32", "highest"))
+            for sid, prec in pair:
+                start_session(base, sid, calculator_request(
+                    *CALC_PAIR_CUT, adam_precision=prec))
+            states = [get_json(base, f"/api/status?session={sid}")["status"]
+                      for sid, _ in pair]
+            logs = {sid: wait_session(base, sid) for sid, _ in pair}
+            pair_seconds = time.perf_counter() - t0
+        finally:
+            train.adam_matmul_precision = inner
+        waited = [sid for sid, log in logs.items()
+                  if any("waiting for the device" in ln for ln in log)]
+        check(states == ["running", "running"], f"pair states {states}")
+        check(len(waited) == 1, f"sessions that waited: {waited}")
+        check(torch.backends.cuda.matmul.allow_tf32 == before,
+              "TF32 flag changed by the sessions")
+        check(sorted(seen) == [("default", True)] * 2
+              + [("highest", False)] * 2, f"Adam phases saw {seen}")
+        check(seen[0][0] == seen[1][0] and seen[2][0] == seen[3][0],
+              f"Adam phases of the two sessions interleaved: {seen}")
+        print(f"  two sessions started together ({CALC_PAIR_CUT}): both "
+              f"done in {pair_seconds:.1f} s, {waited[0]!r} waited for the "
+              f"device; Adam phases in order {[n for n, _ in seen]} with "
+              f"TF32 {[f for _, f in seen]}; allow_tf32 back at {before}")
+
+    out = SMOKE_DIR / "cli_poisson_1d"
+    shutil.rmtree(out, ignore_errors=True)
+    argv = [sys.executable, "-m", "tpinn_torch", "train", "--problem",
+            "poisson_1d", "--device", dev.type, "--adam", str(CALC_CLI_CUT[0]),
+            "--lbfgs", str(CALC_CLI_CUT[1]), "--out", str(out)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True,
+                          timeout=CALC_TIMEOUT)
+    cli_seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the CLI run exited {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(result["problem"] == "poisson_1d" and result["steps"] > 0
+          and result["rel_l2"] is not None
+          and math.isfinite(result["rel_l2"])
+          and (out / "params_stage_1.npz").exists(),
+          f"the CLI run's result {result}")
+    print(f"  python -m tpinn_torch train --problem poisson_1d --device "
+          f"{dev.type} (6x50, {CALC_CLI_CUT}): {cli_seconds:.1f} s in its "
+          f"own process, "
+          f"{json.dumps(result)}")
+    print(f"  phase 5i: {time.perf_counter() - t_phase:.1f} s, calculator "
+          f"launches {launches}, on {card}")
+    return launches
+
+
+def calculator_gates(dev, lines, out, req, rel, card):
+    """The demo's checks beyond rel-L2 (see CALC_BC_TOL): U on the two
+    Dirichlet columns, the error artifact against U and the oracle, the
+    residual artifact against the logged RMS, the correction stage's
+    residual drop, and the request's run (train.ui_problem_spec, then
+    run_training: the seed and budgets the demo's) with each kernel's
+    plain version in its place against the demo's rel-L2."""
+    import numpy as np
+    import torch
+
+    from tpinn_torch.core import train
+
+    def rms(x):
+        return float(np.sqrt(np.mean(np.square(x))))
+
+    def stage_rms(log):
+        found = (re.search(r"stage (\d+): residual RMS (\S+?),?( |$)", ln)
+                 for ln in log)
+        return {int(m.group(1)): float(m.group(2)) for m in found if m}
+
+    with np.load(out / "solution_residual_2.npz") as d:
+        U, F, r = (d[k].astype(np.float64) for k in ("U", "F", "r"))
+    with np.load(out / "error_2.npz") as d:
+        E = d["Error"].astype(np.float64)
+    exact = np.log(r) / np.log(0.1)
+    check(abs(r[0] - 0.1) < 1e-6 and abs(r[-1] - 1.0) < 1e-6,
+          f"the test grid's r runs {r[0]} .. {r[-1]}")
+    bc = (rms(U[:, 0] - 1.0), rms(U[:, -1]))
+    check(max(bc) <= CALC_BC_TOL, f"U on the Dirichlet columns: RMS "
+          f"{bc[0]:.3e} at r = 0.1, {bc[1]:.3e} at r = 1 (bar {CALC_BC_TOL})")
+    err_e = float(np.abs(E - (U - exact)).max())
+    check(err_e <= 1e-5, f"error_2.npz differs from U - u_exact by {err_e}")
+    r_rms = stage_rms(lines)
+    check(sorted(r_rms) == [1, 2] and abs(rms(F) - r_rms[2])
+          <= 1e-3 * r_rms[2], f"residual RMS logged {r_rms}, of "
+          f"solution_residual_2.npz's F {rms(F)}")
+    drop = r_rms[2] / r_rms[1]
+    check(drop <= CALC_RESID_DROP, f"the correction stage's residual RMS "
+          f"{r_rms[2]:.4e} against the first stage's {r_rms[1]:.4e}")
+    print(f"  U on the Dirichlet columns: RMS {bc[0]:.4e} at r = 0.1, "
+          f"{bc[1]:.4e} at r = 1 (bar {CALC_BC_TOL}); error_2.npz = U - "
+          f"u_exact to {err_e:.1e}; residual RMS {r_rms[1]:.4e} -> "
+          f"{r_rms[2]:.4e} (x{drop:.4f}, bar {CALC_RESID_DROP})")
+
+    # the witness: the same run, the kernels' plain versions in their place
+    problem, spec, _, _ = train.ui_problem_spec(**req)
+    plain_lines = []
+    reset_launches()
+    t0 = time.perf_counter()
+    with plain_kernels():
+        res = train.run_training(problem, spec, log_fn=plain_lines.append,
+                                 device=dev)
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    witness = res.rel_l2
+    ratio = max(rel, witness) / min(rel, witness)
+    w_rms = stage_rms(plain_lines)
+    print(f"  the request with the kernels' plain versions in their place "
+          f"(seed and budgets the demo's): {seconds:.1f} s, rel-L2 "
+          f"{witness:.4e} against the demo's {rel:.4e} (factor "
+          f"{ratio:.4f}, bar {CALC_WITNESS}); residual RMS {w_rms.get(1)} "
+          f"-> {w_rms.get(2)}; launches {launches}; on {card}")
+    check(not any(launches.values()), f"the plain run launched {launches}")
+    check(math.isfinite(witness) and ratio <= CALC_WITNESS,
+          f"rel-L2 {rel:.4e} through the kernels, {witness:.4e} through "
+          f"their plain versions (factor {ratio:.3f}, bar {CALC_WITNESS})")
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every B1, B2 and B3 launch inside replaced by the kernel's plain
+    version on the same tensors; the launch counts stay where they are."""
+    from tpinn_torch.kernels import adam, mlp_taylor, taylor_vjp
+
+    fwd, bwd, launcher = mlp_taylor._launch, taylor_vjp._launch, adam.FusedAdam
+
+    def b1(params, z, spec, fm, lb, ub, streams, dims):
+        return mlp_taylor.taylor2_streams_reference(params, z, spec, fm, lb,
+                                                    ub, streams)
+
+    def b2(layers, z, ct, spec, fm, lb, ub, streams):
+        return taylor_vjp.taylor2_backward_reference(layers, z, ct, spec, fm,
+                                                     lb, ub, streams)
+
+    class PlainAdam:
+        """FusedAdam's interface over adam_update_reference."""
+
+        def __init__(self, p, m, v, lr, steps, b1=0.9, b2=0.999, eps=1e-8,
+                     start=1):
+            self.p, self.m, self.v, self.lr, self.t = p, m, v, lr, start
+            self.consts = (b1, b2, eps)
+
+        def step(self, g):
+            adam.adam_update_reference(g, self.p, self.m, self.v, self.lr,
+                                       self.t, *self.consts)
+            self.t += 1
+            return self.p, self.m, self.v
+
+    mlp_taylor._launch, taylor_vjp._launch, adam.FusedAdam = b1, b2, PlainAdam
+    try:
+        yield
+    finally:
+        mlp_taylor._launch, taylor_vjp._launch, adam.FusedAdam = (fwd, bwd,
+                                                                  launcher)
+
+
+def calculator_only() -> None:
+    """Phases 1 and 5i alone.  Nothing is built beforehand: the demo
+    session's thread builds the kernels at their first use."""
+    import torch
+
+    from tpinn_torch.kernels import _build
+
+    card = card_line()
+    print(f"  card: {card}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda", 0)
+    phase("5i. the online calculator")
+    phase_calculator(dev, card)
+    for name in KERNELS:
+        info = _build.BUILD_INFO[name]
+        print(f"  {name} built in the session thread in "
+              f"{info['seconds']:.2f} s (cached: {info['cached']})")
 
 
 def queued_ms(fn, blocker) -> float:
@@ -4449,13 +4918,21 @@ def main() -> int:
 
     phase("5h. ensembles, patches, refmode (the ensemble and patch paths)")
     ep_launches = phase_ensemble_patch(dev, card)
-    # the kernels line's launches: the four newest main paths, marching
-    # (B1, B2, B3), coupled systems (B3 only), scalar inverse (B1, B2, B3)
-    # and ensembles and patches (B1, B2, B3; B3 only), each read on its own
+
+    phase("5i. the online calculator (the calculator slice's path)")
+    calc_launches = phase_calculator(dev, card)
+    for k in KERNELS:
+        check(calc_launches[k] > 0, f"{k} launched no time on the "
+              f"calculator path")
+    # the kernels line's launches: the five newest main paths, marching
+    # (B1, B2, B3), coupled systems (B3 only), scalar inverse (B1, B2, B3),
+    # ensembles and patches (B1, B2, B3; B3 only) and the calculator (B1,
+    # B2, B3), each read on its own
     launches = {k: sum(v[k] for v in (*march_launches.values(),
                                       *system_launches.values(),
                                       *inverse_launches.values(),
-                                      *ep_launches.values()))
+                                      *ep_launches.values(),
+                                      calc_launches))
                 for k in KERNELS}
 
     phase("6. timing")
@@ -4541,12 +5018,13 @@ def main() -> int:
                                  **{f"inverse_{k}": v[src] for k, v in
                                     inverse_launches.items()},
                                  **{k: v[src] for k, v in
-                                    ep_launches.items()}}, **extra})
+                                    ep_launches.items()},
+                                 "calculator": calc_launches[src]}, **extra})
         k = kernels[-1]
         print(f"  {name}: {k['ms']:.4f} ms, bound {k['bound_ms']:.5f} ms by "
               f"{k['bound_by']} ({100 * k['bound_ms'] / k['ms']:.1f}% of the "
-              f"time), launches on the marching, system, inverse, ensemble "
-              f"and patch paths {launches[src]}, on {card}")
+              f"time), launches on the marching, system, inverse, ensemble, "
+              f"patch and calculator paths {launches[src]}, on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4587,6 +5065,8 @@ if __name__ == "__main__":
         ensemble_patch_only()
     elif sys.argv[1:2] == ["--patch-recipe"]:
         patch_recipe()
+    elif sys.argv[1:2] == ["--calculator-only"]:
+        calculator_only()
     elif sys.argv[1:2] == ["--determinism"] and len(sys.argv) <= 3:
         determinism(sys.argv[2] if len(sys.argv) == 3 else None)
     else:

@@ -456,3 +456,48 @@ def test_patched_residual_on_card_matches_cpu(cuda_device):
                                atol=1e-6)
     np.testing.assert_allclose(out[card, torch.float64][1],
                                out[cpu, torch.float64][1], rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_calculator_sessions_on_card(cuda_device, tmp_path):
+    """The calculator's controller on the card: tests/test_app.py's tiny
+    request (the polar demo at 2x16) through SessionManager(device=
+    "cuda") launches B1, B2 and B3, writes the 11 artifacts and ends
+    done; two sessions started together, adam_precision "default" and
+    "highest", take turns and leave allow_tf32 as they found it."""
+    from tpinn_torch.app.controller import SessionManager, TrainingRequest
+    from tpinn_torch.app.figure_data import FIGURES, figure_payload
+
+    bc = {"bd_x1_min": 0.1, "bd_x1_max": 0.1, "bd_y1_min": 0,
+          "bd_y1_max": 1, "bd_u1": 1, "bd_x2_min": 1, "bd_x2_max": 1,
+          "bd_y2_min": 0, "bd_y2_max": 1, "bd_u2": 0}
+
+    def request(**options):
+        return TrainingRequest(
+            equation="u_rr + 1/r*u_r + 1/r**2*u_tt", boundary=bc,
+            domain={"x_min": 0.1, "x_max": 1, "y_min": 0, "y_max": 1},
+            sample_points={"n_col": 120, "n_bd": 30, "n_add": 30},
+            network_size={"depth": 16, "width": 2},
+            testing_size={"x": 31, "y": 31},
+            epochs={"adam": 25, "lbfgs": 12}, options=options)
+
+    def finish(sid):
+        mgr.get(sid).thread.join(timeout=600)
+        st = mgr.status(sid)
+        assert st["status"] == "done", (st["error"], st["log"][-800:])
+        return st["log"]
+
+    mgr = SessionManager(str(tmp_path), device="cuda")
+    mlp_taylor.LAUNCHES = taylor_vjp.LAUNCHES = adam.LAUNCHES = 0
+    assert mgr.start("demo", request()) is None
+    finish("demo")
+    assert min(mlp_taylor.LAUNCHES, taylor_vjp.LAUNCHES, adam.LAUNCHES) > 0
+    for name in FIGURES:
+        assert figure_payload(tmp_path / "demo", name)["type"] != "missing"
+
+    before = torch.backends.cuda.matmul.allow_tf32
+    for sid, prec in (("a", "default"), ("b", "highest")):
+        assert mgr.start(sid, request(adam_precision=prec)) is None
+    logs = [finish(sid) for sid in ("a", "b")]
+    assert sum("waiting for the device" in log for log in logs) == 1
+    assert torch.backends.cuda.matmul.allow_tf32 == before

@@ -50,8 +50,8 @@ from tpinn_torch.core import net, optim, pde, sample
 from tpinn_torch.core.train import (_DTYPES, ProblemSpec, TrainSpec,
                                     _check_supported, _write_stage_artifacts,
                                     adam_matmul_precision, eval_grid,
-                                    make_density_fn, resolve_device,
-                                    resolve_residual_weight,
+                                    make_density_fn, one_run_at_a_time,
+                                    resolve_device, resolve_residual_weight,
                                     resolve_testing_size)
 from tpinn_torch.utils import artifacts
 from tpinn_torch.utils import checkpoint as ckpt
@@ -179,6 +179,7 @@ def synth_observations(problem, inv: InverseSpec, dtype, device="cpu",
     return z_obs, u_obs
 
 
+@one_run_at_a_time
 def run_inverse(
     problem: ProblemSpec,
     inv: InverseSpec,

@@ -39,8 +39,8 @@ from tpinn_torch.core import loss as loss_mod
 from tpinn_torch.core import net, optim, pde, sample
 from tpinn_torch.core.train import (_DTYPES, ProblemSpec, TrainSpec,
                                     _check_supported, eval_grid,
-                                    make_density_fn, resolve_device,
-                                    resolve_residual_weight,
+                                    make_density_fn, one_run_at_a_time,
+                                    resolve_device, resolve_residual_weight,
                                     resolve_testing_size)
 from tpinn_torch.utils import checkpoint as ckpt
 
@@ -167,6 +167,7 @@ class PatchResult:
     n_patches: int
 
 
+@one_run_at_a_time
 def run_patched(
     problem: ProblemSpec,
     spec: TrainSpec,

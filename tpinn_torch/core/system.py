@@ -44,7 +44,8 @@ from tpinn_torch.core import net, optim, pde, sample
 from tpinn_torch.core.inverse import synth_observations
 from tpinn_torch.core.train import (_DTYPES, TrainSpec, _check_supported,
                                     adam_matmul_precision, eval_grid,
-                                    resolve_device, resolve_testing_size)
+                                    one_run_at_a_time, resolve_device,
+                                    resolve_testing_size)
 from tpinn_torch.utils import checkpoint as ckpt
 
 Tensor = torch.Tensor
@@ -167,6 +168,7 @@ def _observations(problem: SystemSpec, inverse, observations, dtype, dev):
                               n_fields=len(problem.fields))
 
 
+@one_run_at_a_time
 def run_system(
     problem: SystemSpec,
     spec: TrainSpec,

@@ -39,12 +39,22 @@ Not ported yet, and refused with NotImplementedError before any work:
 mid-stage resume (item 9), ``lbfgs_device``.  ``cpu_fallback=True`` raises
 ValueError: the port never retries a phase elsewhere, so
 ``TrainResult.fell_back`` is always False.
+
+``run_pinn_training`` is the online calculator's entry: the reference's
+kwarg schema (a typed equation, boundary groups, a 2-D box) turned into a
+ProblemSpec and a two-stage TrainSpec, with the whitelisted UI options of
+``UI_OPTION_SPEC``; it dispatches to ``run_training``, to
+``core.march.run_time_marching`` (``options.march``) or to
+``core.inverse.run_inverse`` (``options.inverse_params``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import math
 import sys
+import threading
 import time
 from dataclasses import dataclass, replace
 from pathlib import Path
@@ -318,6 +328,35 @@ def adam_matmul_precision(name):
         torch.backends.cuda.matmul.allow_tf32 = before
 
 
+# One training run at a time in this process: adam_matmul_precision sets
+# torch's process-wide TF32 flag, so two overlapping runs (the calculator's
+# sessions run in threads) would leak it into each other's phases or leave
+# it changed.  Re-entrant: marching, ensembles and run_pinn_training call
+# run_training inside a run.  tpinn's precision is per computation, and
+# its runs overlap.
+_RUN_LOCK = threading.RLock()
+
+
+def one_run_at_a_time(entry):
+    """``entry``, a training entry point, run under the process's training
+    lock; a caller that has to wait says so first through its ``log_fn``
+    keyword (on stderr without one)."""
+
+    @functools.wraps(entry)
+    def run(*args, **kwargs):
+        if not _RUN_LOCK.acquire(blocking=False):
+            log = kwargs.get("log_fn") or (
+                lambda m: print(m, file=sys.stderr))
+            log("waiting for the device (another training run holds it)")
+            _RUN_LOCK.acquire()
+        try:
+            return entry(*args, **kwargs)
+        finally:
+            _RUN_LOCK.release()
+
+    return run
+
+
 def resolve_device(device) -> torch.device:
     """``device`` as a torch.device; "cuda" without a card raises (the port
     never falls back to the CPU)."""
@@ -360,6 +399,7 @@ def _check_supported(spec: TrainSpec, mesh) -> None:
 # ---------------------------------------------------------------------------
 
 
+@one_run_at_a_time
 def run_training(
     problem: ProblemSpec,
     spec: TrainSpec,
@@ -984,3 +1024,304 @@ def _write_stage_artifacts(out, stage_no, problem, spec, axes, U, F,
         freq_t = np.fft.fftshift(np.fft.fftfreq(ny, d=dt))
         artifacts.write_spectrum(out / "frequency_spectrum.npz", freq_x,
                                  freq_t, np.log1p(mag))
+
+
+# ---------------------------------------------------------------------------
+# Reference-schema entry point (the online calculator's)
+# ---------------------------------------------------------------------------
+
+
+# Whitelisted "advanced options" the UI may pass to run_pinn_training: the
+# single source of truth shared with the controller's validation
+# (tpinn_torch.app.controller.TrainingRequest).  Values are a tuple of
+# allowed choices or a coercion type (int = must be integral).
+UI_OPTION_SPEC = {
+    "deflation": ("off", "auto", "full"),
+    "lsq_polish": ("off", "auto", "on"),
+    "adam_precision": ("highest", "high", "default"),
+    "adam_engine": loss_mod.ENGINES,
+    "lr_min": float,
+    "lbfgs_rounds": int,
+    "lbfgs_grid": int,
+    "ring_weight": float,
+    # causal residual weighting (TrainSpec.causal_eps/_bins): evolution
+    # presets only; the axis stays the default "t"
+    "causal_eps": float,
+    "causal_bins": int,
+    # time marching (core.march.run_time_marching): N sequential windows
+    # along the SECOND coordinate (the UI's y/t axis); 0 = off
+    "march": int,
+    # inverse mode (core.inverse): unknown equation coefficients
+    # "name=init[,name=init…]"; observations are synthesized from the
+    # oracle preset's analytic solution
+    "inverse_params": "coef_list",
+    "n_obs": int,
+    "obs_noise": float,
+    "oracle": "preset_name",
+}
+_UI_STAGE_OPTIONS = frozenset({"lbfgs_rounds", "lbfgs_grid"})
+_UI_INVERSE_OPTIONS = frozenset({"inverse_params", "n_obs", "obs_noise",
+                                 "oracle"})
+# the reference's polar Laplacian, the one equation whose analytic oracle
+# u = log(r)/log(0.1) exact="auto" installs
+_POLAR_LAPLACE = ("u_rr+1/r*u_r+1/r**2*u_tt", "u_rr+u_r/r+u_tt/r**2")
+
+
+def parse_coef_list(s: str):
+    """'lam=0.5,k=1' → (('lam', 'k'), (0.5, 1.0)); '' → ((), ())."""
+    names, inits = [], []
+    for part in str(s).split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if "=" not in part:
+            raise ValueError(
+                f"inverse_params entries must be NAME=INIT, got {part!r}")
+        n, v = part.split("=", 1)
+        n = n.strip()
+        if not n.isidentifier():
+            raise ValueError(f"bad coefficient name {n!r}")
+        names.append(n)
+        inits.append(float(v))
+    return tuple(names), tuple(inits)
+
+
+def coerce_ui_option(key: str, value):
+    """Validate and coerce one UI option against UI_OPTION_SPEC.
+
+    Raises KeyError for unknown keys and ValueError for bad values (a
+    non-integral number for an int option, a value outside the choices),
+    so that callers validate BEFORE the training thread starts."""
+    spec = UI_OPTION_SPEC[key]
+    if isinstance(spec, tuple):
+        if value not in spec:
+            raise ValueError(f"option {key} must be one of {spec}, "
+                             f"got {value!r}")
+        return value
+    if spec == "coef_list":
+        parse_coef_list(value)  # raises ValueError on bad format
+        return str(value)
+    if spec == "preset_name":
+        if not value:
+            return ""
+        from tpinn_torch import problems as _problems
+
+        if str(value) not in _problems.PRESETS:
+            raise ValueError(f"option {key}: unknown preset {value!r}")
+        return str(value)
+    try:
+        f = float(value)
+    except (TypeError, ValueError):
+        raise ValueError(f"option {key} must be numeric, "
+                         f"got {value!r}") from None
+    if spec is int:
+        i = int(f)
+        if f != i:
+            raise ValueError(f"option {key} must be an integer, "
+                             f"got {value!r}")
+        return i
+    return f
+
+
+def _polar_oracle(z: Tensor) -> Tensor:
+    return torch.log(z[:, 0:1]) / math.log(0.1)
+
+
+@one_run_at_a_time
+def run_pinn_training(
+    equation: str,
+    boundary: dict,
+    domain: dict,
+    scl: float,
+    epsil: float,
+    sample_points: dict,
+    network_size: dict,
+    testing_size: dict,
+    epochs: dict,
+    equation_weight: dict,
+    output_dir: str,
+    coords: Optional[Tuple[str, ...]] = None,
+    feature_kinds: Optional[Tuple[str, ...]] = None,
+    exact: Optional[Callable] = "auto",
+    log_fn: Optional[Callable] = None,
+    dtype: str = "float32",
+    options: Optional[dict] = None,
+    device="cuda",
+) -> TrainResult:
+    """The reference's public entry (its kwarg schema, the equation string
+    actually used), run on ``device`` ("cuda" fails without a card): the
+    run that :func:`ui_problem_spec` describes."""
+    problem, spec, march_n, inv_opts = ui_problem_spec(
+        equation, boundary, domain, scl, epsil, sample_points, network_size,
+        testing_size, epochs, equation_weight, coords=coords,
+        feature_kinds=feature_kinds, exact=exact, dtype=dtype,
+        options=options)
+    if march_n:
+        # windows along the second (y/t) coordinate; the composite's
+        # artifact set lands at output_dir's top level
+        from tpinn_torch.core.march import run_time_marching
+
+        mres = run_time_marching(problem, spec, march_n,
+                                 axis=problem.coords[1],
+                                 output_dir=output_dir, log_fn=log_fn,
+                                 print_log=log_fn is None, device=device)
+        return TrainResult(
+            problem=problem, spec=spec, stages=[], predict=mres.predict,
+            rel_l2=mres.rel_l2,
+            history=np.concatenate([r.history for r in mres.windows],
+                                   axis=0))
+
+    if inv_opts.get("inverse_params"):
+        # identify the declared coefficients from observations synthesized
+        # from an analytic oracle: the problem's own or a named preset's
+        from tpinn_torch.core.inverse import InverseSpec, run_inverse
+
+        names, inits = parse_coef_list(inv_opts["inverse_params"])
+        if problem.exact is None and inv_opts.get("oracle"):
+            from tpinn_torch import problems as _problems
+
+            oracle = _problems.get_problem(inv_opts["oracle"])
+            if oracle.dim != problem.dim:
+                raise ValueError(
+                    f"oracle preset {inv_opts['oracle']!r} is "
+                    f"{oracle.dim}-D but the problem is {problem.dim}-D")
+            problem = replace(problem, exact=oracle.exact)
+        if problem.exact is None:
+            raise ValueError(
+                "inverse mode needs an analytic oracle to synthesize "
+                "observations from — pick a preset (options.oracle) or use "
+                "tpinn_torch.core.inverse.run_inverse with observations=")
+        inv = InverseSpec(
+            params=names, init=inits,
+            n_obs=int(inv_opts.get("n_obs") or 200),
+            obs_noise=float(inv_opts.get("obs_noise") or 0.0))
+        dropped = [k for k in ("lsq_polish", "deflation")
+                   if getattr(spec, k, "off") != "off"]
+        if spec.ring_weight > 0:
+            dropped.append("ring_weight")
+        if spec.causal_eps > 0:
+            dropped.append("causal_eps")
+        if dropped:
+            msg = ("inverse mode: option(s) "
+                   f"{', '.join(dropped)} have no inverse-path "
+                   "implementation and are ignored")
+            (log_fn or (lambda m: print(m, file=sys.stderr)))(msg)
+        # single stage: the coefficient stays live through every phase
+        single = replace(spec, stages=spec.stages[:1])
+        res = run_inverse(problem, inv, single, log_fn=log_fn,
+                          print_log=log_fn is None, output_dir=output_dir,
+                          device=device)
+        return TrainResult(
+            problem=problem, spec=single, stages=[], predict=res.predict,
+            rel_l2=res.rel_l2, history=res.history)
+
+    return run_training(problem, spec, output_dir=output_dir, log_fn=log_fn,
+                        print_log=log_fn is None, device=device)
+
+
+def ui_problem_spec(
+    equation: str,
+    boundary: dict,
+    domain: dict,
+    scl: float,
+    epsil: float,
+    sample_points: dict,
+    network_size: dict,
+    testing_size: dict,
+    epochs: dict,
+    equation_weight: dict,
+    coords: Optional[Tuple[str, ...]] = None,
+    feature_kinds: Optional[Tuple[str, ...]] = None,
+    exact: Optional[Callable] = "auto",
+    dtype: str = "float32",
+    options: Optional[dict] = None,
+):
+    """What :func:`run_pinn_training` runs for its arguments: ``(problem,
+    spec, march, inverse options)``, ``march`` the number of time windows
+    (0: no marching) and the inverse options those of
+    ``_UI_INVERSE_OPTIONS`` given.
+
+    Coordinates default to inference from the equation (pde.infer_coords):
+    polar r/t gets the hard periodic-θ embedding, cartesian x/y (or x/t)
+    plain min-max features.  ``exact="auto"`` installs the analytic oracle
+    u = log(r)/log(0.1) only when the equation is the polar Laplacian.
+    The net reads its coordinates unpadded (``pad_features=0``; tpinn pads
+    to 3 to dodge a TPU compiler fault, which leaves the function class
+    unchanged).
+    """
+    if coords is None:
+        coords = pde.infer_coords(equation)
+        if len(coords) == 1:
+            coords = ("x", "t")  # the UI always supplies a 2-D domain
+    if feature_kinds is None:
+        feature_kinds = tuple(
+            net.PERIODIC if c == "t" and coords[0] == "r" else net.MINMAX
+            for c in coords)
+    if exact == "auto":
+        exact = (_polar_oracle if coords == ("r", "t")
+                 and equation.replace(" ", "") in _POLAR_LAPLACE else None)
+    elif exact == "annulus":  # legacy explicit oracle selector
+        exact = _polar_oracle
+
+    groups = []
+    for i in range(1, len(boundary) // 5 + 1):
+        raw_u = boundary[f"bd_u{i}"]
+        try:
+            value, value_fn, value_expr = float(raw_u), None, None
+        except (TypeError, ValueError):
+            # expression-valued BC (e.g. the heat IC "sin(pi*x)")
+            value = 0.0
+            value_expr = str(raw_u)
+            value_fn = pde.compile_coord_expr(value_expr, coords)
+        groups.append(sample.BCGroup(
+            lo=(boundary[f"bd_x{i}_min"], boundary[f"bd_y{i}_min"]),
+            hi=(boundary[f"bd_x{i}_max"], boundary[f"bd_y{i}_max"]),
+            value=value, value_fn=value_fn, value_expr=value_expr))
+
+    problem = ProblemSpec(
+        name="ui", equation=equation, coords=coords,
+        lb=(domain["x_min"], domain["y_min"]),
+        ub=(domain["x_max"], domain["y_max"]),
+        bc_groups=tuple(groups), feature_kinds=feature_kinds, exact=exact)
+
+    # the reference swaps depth and width: UI "width" is the hidden-layer
+    # count, UI "depth" the units per layer
+    spec = TrainSpec(
+        n_col=int(sample_points["n_col"]), n_band=int(sample_points["n_bd"]),
+        n_adaptive=int(sample_points["n_add"]), n_bd=100,
+        testing_size=(int(testing_size["x"]), int(testing_size["y"])),
+        lw=(float(equation_weight["f"]), float(equation_weight["df"])),
+        dtype=dtype,
+        # one loss row per L-BFGS function evaluation, as the reference's
+        # loss curves have
+        lbfgs_history="evals",
+    ).with_default_stages(
+        depth=int(network_size["width"]), width=int(network_size["depth"]),
+        adam=int(epochs["adam"]), lbfgs=int(epochs["lbfgs"]))
+    s1 = replace(spec.stages[0], scl=float(scl), epsil=float(epsil))
+    spec = replace(spec, stages=(s1, spec.stages[1]))
+
+    # whitelisted TrainSpec / per-stage overrides, coerced through the
+    # registry the controller validates against
+    inv_opts = {}
+    march_n = 0
+    if options:
+        coerced = {k: coerce_ui_option(k, v) for k, v in options.items()
+                   if k in UI_OPTION_SPEC}
+        inv_opts = {k: coerced.pop(k) for k in list(coerced)
+                    if k in _UI_INVERSE_OPTIONS}
+        march_n = int(coerced.pop("march", 0) or 0)
+        spec_keys = {k: v for k, v in coerced.items()
+                     if k not in _UI_STAGE_OPTIONS}
+        if spec_keys:
+            spec = replace(spec, **spec_keys)
+        st_keys = {k: v for k, v in coerced.items()
+                   if k in _UI_STAGE_OPTIONS}
+        if st_keys:
+            spec = replace(spec, stages=tuple(
+                replace(s, **st_keys) for s in spec.stages))
+
+    if march_n and inv_opts.get("inverse_params"):
+        raise ValueError("march has no inverse-path implementation — "
+                         "drop one of options.march / inverse_params")
+    return problem, spec, march_n, inv_opts
