@@ -64,7 +64,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
       vectors and on views one float off 16-byte alignment: through the
       Adam phase's launcher (FusedAdam, the step and the bias corrections
       read on the device) and through adam_update_flat, which must agree
-      bitwise; then 10 launcher steps captured in one CUDA graph (the
+      bitwise; then phase 5j's resumed launcher (resume_adam_cases: the
+      32,801-float vector from step 101, as a resumed Adam phase builds
+      it) over its 120 steps from moments that are not zero, against the
+      plain version from the same step; then 10 launcher steps captured in
+      one CUDA graph (the
       capture counts no launch), replayed 3 times (lr halved between the
       first and the second replay), against 30 plain steps, with the
       device step at 31; a fourth replay, past the launcher's table, must
@@ -228,6 +232,30 @@ Phases, each of which raises on failure (the script then exits non-zero):
    do not interleave, and allow_tf32 ends as it began.  Then `python -m
    tpinn_torch train --problem poisson_1d --device cuda` at a cut budget
    in its own process, its JSON line parsed.
+5j. Mid-stage resume, lbfgs_device and profiling (the resume slice's
+   path): a. the flagship recipe (6x80 hard BC, 46,000 points a step) at
+   RESUME_ADAM / RESUME_LBFGS with its cadences cut (draws every 30 steps,
+   density refreshes every 40, plateau checks every 60, a tail of 20), the
+   last-layer solves and the correction off, and checkpoint_every=50,
+   through run_training on the card: run A
+   uninterrupted; run B killed by an exception raised right after the
+   phase file of step 100 is written (utils.checkpoint.save_phase_state
+   wrapped), then run again with resume=True: the resume log line, the two
+   runs' loss-history and final-params digests equal bit for bit, B1 and
+   B2 at least once per resumed step and B3 once, through one launcher
+   built at step 101 whose device step ends at the Adam steps + 1 (launch
+   counts reset before and read after the resumed run); every B1/B2 launch
+   of both runs at a shape phases 3a and 3b hold (resume_kernel_cases),
+   the B3 launcher at a (size, start) 3c holds.  b. One L-BFGS round (one
+   iterate) on a density draw from run A's Adam result (its phase file,
+   run_training(resume=True), tail 0), with lbfgs_device="cpu" and on the
+   card, each one call timed by profiling.timed: row
+   0 of the two within 1e-5 relative, each final loss at most its row 0,
+   the params returned on the card.  c. profiling.trace of 10 flagship
+   Adam steps (kernel engine): device operations a step and the
+   device-busy share from the trace's kernel, copy and set events; the
+   StepTimer median (CUDA events) over 20 steps beside the host-clock
+   median.  Outputs in build/smoke/resume/.
 6. Timing (medians of synchronised runs): B1 inside the residual at the
    serving shapes; B1 alone against its plain version at the served
    262,144 points, the recipe's batch and L-BFGS grid (46,000, 202,500)
@@ -272,6 +300,7 @@ of the smoke):
     python3 chip_smoke.py --ensemble-patch-only # phases 2, 3c, 5h, its timing
     python3 chip_smoke.py --patch-recipe       # tpinn's FBPINN case as written
     python3 chip_smoke.py --calculator-only    # phase 5i, kernels built in it
+    python3 chip_smoke.py --resume-only        # phase 2, 3c's resumed B3, 5j
     python3 chip_smoke.py --determinism [DIR]  # warned ops of 5c's training
 
 The compares time the kernel at phase 6's shapes in DIR (say a git
@@ -304,10 +333,10 @@ fails unless |lam - 1| < 1e-2 (the bar of tests/test_inverse.py).
 tests/test_patch.py).
 
 The line before the last is a JSON object describing the kernels (each
-with its launches on the five newest main paths, phase 5e's three
+with its launches on the six newest main paths, phase 5e's three
 marching recipes, phase 5f's coupled systems, phase 5g's inverse runs,
-phase 5h's ensemble members and patched run and phase 5i's demo session
-together, and on every path by name, its time, its plain version's, the card's bound for the
+phase 5h's ensemble members and patched run, phase 5i's demo session
+and phase 5j's resumed run together, and on every path by name, its time, its plain version's, the card's bound for the
 same work and, where one PyTorch call computes the same function, that
 call's time; B1 and B2 with every timed shape and its plan under
 "shapes", B1's times around the call, with its device and host times
@@ -365,6 +394,7 @@ RECIPE_ADAM = 300   # phase 5b: adam_epochs of the recipe, cut from 8,000
 # close to the 0.8 above which polish.galerkin_defect keeps no correction
 RECIPE_LBFGS = 900
 RECIPE_GRID_N = 450 * 450   # points of the recipe's lbfgs_grid
+RECIPE_DENSITY_N = 111 * 111  # the recipe's density grid (grid=111)
 # phase 3b: a 6x128 net and heat_2d's 6x96 net at its recipe's batch
 # (tpinn/problems/recipes.py), whose gradients B2 cannot keep in shared
 # memory, and a 3x256 net, whose W it stages in chunks of rows
@@ -465,6 +495,23 @@ CALC_WITNESS = 2.0
 CALC_FIGURES = {"colloc": "heatmap_scatter", "solution": "dual_heatmap",
                 "error": "heatmap", "loss": "lines_log",
                 "boundary": "lines_log_pair", "spectrum": "heatmap"}
+# phase 5j: the flagship recipe (6x80 hard BC, 46,000 points a step) with
+# its Adam budget cut from 8,000 to RESUME_ADAM and lbfgs_epochs from 8,000
+# to 9 (3 rounds of one iterate on the 450^2 grid), the last-layer solves
+# and the correction off (they come after the phase resumed); the cadences
+# cut so
+# that the draws (every 30 steps), the density refreshes (every 40) and a
+# plateau check (every 60) fall inside the resumed window; a phase file
+# every 50 steps (log_every 5: a log chunk of 50); run B killed right
+# after the save at step RESUME_KILL
+RESUME_ADAM = 200
+RESUME_KILL = 100
+RESUME_LBFGS = 9
+RESUME_CADENCE = dict(tail_max=20, resample_every=30, density_every=40,
+                      plateau_every=60, log_every=5, checkpoint_every=50)
+RESUME_LBFGS_RTOL = 1e-5   # L-BFGS row 0 on the CPU vs on the card
+PROFILE_STEPS = 10         # flagship Adam steps in the profiler's trace
+TIMER_STEPS = 20           # flagship Adam steps timed by StepTimer
 QUEUED = 100        # back-to-back launches timed behind a long kernel
 # B3 past one grid of 132 SMs x 4 blocks x 256 threads: its threads loop
 LOOP_N = 140_001
@@ -673,6 +720,9 @@ def phase_kernel_vs_plain(dev, gen):
     modes, chunked = set(), False
     paths = [case[:-1] for case in march_kernel_cases()
              + inverse_kernel_cases() + calculator_kernel_cases()]
+    # phase 5j's density grid (its batch and L-BFGS grid are kernel_cases')
+    paths += [case[:-1] for case in resume_kernel_cases()
+              if case[6] == RECIPE_DENSITY_N]
     for name, spec, fm, lo, hi, streams, n in (kernel_cases() + paths
                                                + b1_mode_cases()):
         dims = [fm.num_features] + [spec.width] * spec.depth + [1]
@@ -1128,7 +1178,79 @@ def phase_b3(dev):
                   f"{ADAM_STEPS // 2 + 1}; launcher and adam_update_flat "
                   f"identical, device step {launcher.t}; max abs err vs "
                   f"plain " + ", ".join(errs))
+    worst_abs = max(worst_abs, b3_resumed(dev))
     return max(worst_abs, b3_graph_check(dev))
+
+
+def resume_adam_cases():
+    """(n, start) of every B3 launcher phase 5j's resumed Adam phase
+    builds: the flagship's flat vector (ADAM_N floats) from step
+    RESUME_KILL + 1.  Phase 3c holds them (b3_resumed)."""
+    return [(ADAM_N, RESUME_KILL + 1)]
+
+
+def b3_resumed(dev):
+    """B3 through a launcher built at start > 1, as a resumed Adam phase
+    builds it (bias corrections and device step from ``start``), on
+    moments that are not zero, against its plain version from the same
+    step and against adam_update_flat at each step, for the steps the
+    resumed phase may take (tail included), lr halved half-way; aligned
+    and one float off alignment.  Returns the largest absolute
+    difference."""
+    import torch
+
+    from tpinn_torch.kernels import adam
+
+    worst = 0.0
+    steps = RESUME_ADAM + RESUME_CADENCE["tail_max"] - RESUME_KILL
+    for n, start in resume_adam_cases():
+        for offset in (0, 1):
+            gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+            p0 = torch.randn(n, generator=gen, device=dev)
+            m0 = 1e-2 * torch.randn(n, generator=gen, device=dev)
+            v0 = 1e-4 * torch.rand(n, generator=gen, device=dev)
+            routes = {k: [at_offset(x, offset) for x in (p0, m0, v0)]
+                      for k in ("launcher", "adam_update_flat")}
+            pr, mr, vr = p0.clone(), m0.clone(), v0.clone()
+            lr = torch.full((1,), 5e-4, device=dev)
+            lr_r = lr.clone()
+            launcher = adam.FusedAdam(*routes["launcher"], lr, steps,
+                                      start=start)
+            before = adam.LAUNCHES
+            for k in range(steps):
+                if k == steps // 2:
+                    lr.mul_(0.5)
+                    lr_r.mul_(0.5)
+                g = at_offset(torch.randn(n, generator=gen, device=dev),
+                              offset)
+                launcher.step(g)
+                adam.adam_update_flat(g, *routes["adam_update_flat"], lr,
+                                      start + k)
+                adam.adam_update_reference(g, pr, mr, vr, lr_r, start + k)
+            torch.cuda.synchronize()
+            what = f"B3 n={n} from step {start} offset {offset}"
+            check(adam.LAUNCHES - before == 2 * steps,
+                  f"{what}: launched {adam.LAUNCHES - before} times in "
+                  f"{steps} steps of two routes")
+            check(launcher.t == start + steps,
+                  f"{what}: the device step reads {launcher.t}")
+            check(all(torch.equal(a, b) for a, b in zip(*routes.values())),
+                  f"{what}: the launcher and adam_update_flat differ")
+            errs = []
+            for name, a, b in zip("pmv", routes["launcher"], (pr, mr, vr)):
+                err = (a - b).abs().max().item()
+                scale = b.abs().max().item()
+                check(err <= ADAM_RTOL * scale,
+                      f"{what} {name}: max |diff| {err:.3e}, max |ref| "
+                      f"{scale:.3e}")
+                errs.append(f"{name} {err:.2e}")
+                worst = max(worst, err)
+            print(f"  {what} ({'aligned' if offset == 0 else 'unaligned'}, "
+                  f"phase 5j's resumed launcher): {steps} steps from t = "
+                  f"{start}, lr halved at t = {start + steps // 2}; launcher "
+                  f"and adam_update_flat identical, device step "
+                  f"{launcher.t}; max abs err vs plain " + ", ".join(errs))
+    return worst
 
 
 def b3_graph_check(dev, k=10, replays=3):
@@ -1694,6 +1816,7 @@ def adam_launchers():
     class Recorded(inner):
         def __init__(self, *args, **kwargs):
             super().__init__(*args, **kwargs)
+            self.start = kwargs.get("start", 1)
             built.append(self)
 
     adam.FusedAdam = Recorded
@@ -3912,6 +4035,292 @@ def calculator_only() -> None:
               f"{info['seconds']:.2f} s (cached: {info['cached']})")
 
 
+def resume_kernel_cases():
+    """(name, spec, fm, lb, ub, streams, N, backward) of the shapes phase
+    5j launches B1 and B2 at: the flagship's 6x80 hard-BC net at its batch
+    (the Adam steps) and its L-BFGS grid (450^2), B1 and B2 both, and at
+    its density grid (111^2, B1: the refreshes in the resumed window).
+    Phases 3a and 3b hold them."""
+    from tpinn_torch.core import net
+
+    annulus_fm = net.feature_map_for(("minmax", "periodic"))
+    return [(f"annulus_laplace recipe 6x80, {what}", annulus_spec(),
+             annulus_fm, (0.1, 0.0), (1.0, 2 * math.pi), IDX5, n, backward)
+            for what, n, backward in (
+                ("the batch", RECIPE_N, True),
+                ("the L-BFGS grid", RECIPE_GRID_N, True),
+                ("the density grid", RECIPE_DENSITY_N, False))]
+
+
+def params_digest(params) -> str:
+    import numpy as np
+
+    return history_digest(np.concatenate(
+        [x.detach().cpu().numpy().ravel() for x in leaves_of(params)]))
+
+
+def resume_spec(**stage_kw):
+    """The flagship recipe at phase 5j's cut (RESUME_ADAM, RESUME_LBFGS,
+    RESUME_CADENCE); the StageSpec fields of ``stage_kw`` replaced."""
+    import dataclasses
+
+    from tpinn_torch import problems
+
+    problem, spec = problems.get_recipe("annulus_laplace")
+    st = dataclasses.replace(spec.stages[0], **{
+        "adam_epochs": RESUME_ADAM, "lbfgs_epochs": RESUME_LBFGS,
+        **stage_kw})
+    return problem, dataclasses.replace(spec, stages=(st,), **RESUME_CADENCE)
+
+
+def phase_resume(dev, card):
+    """Phase 5j: (a) the flagship at its full width and batch through
+    run_training with checkpoint_every: run A uninterrupted; run B killed
+    by an exception raised right after the phase file of step RESUME_KILL
+    is written, then resumed with resume=True; the two runs' loss-history
+    and final-params digests equal bit for bit; B1, B2 and B3 launched in
+    the resumed run at shapes phases 3a-3c hold, B3 from step RESUME_KILL +
+    1 with the device step at the Adam steps + 1.  (b) One L-BFGS round
+    from run A's Adam result through run_training(resume=True) with
+    lbfgs_device="cpu" and with the default (the card): row 0 of the two
+    histories within RESUME_LBFGS_RTOL, each final loss at most its row 0,
+    the params back on the card; both timed by profiling.timed.  (c) A
+    profiling.trace of PROFILE_STEPS flagship Adam steps: device operations
+    a step and the device-busy share from the trace's kernel events; the
+    StepTimer median (CUDA events) beside the host-clock median.  Returns
+    the resumed run's launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tpinn_torch.core import train
+    from tpinn_torch.utils import checkpoint, profiling
+
+    t_phase = time.perf_counter()
+    root = SMOKE_DIR / "resume"
+    shutil.rmtree(root, ignore_errors=True)
+    problem, spec = resume_spec()
+    spec = dataclasses.replace(spec, lsq_polish="off", deflation="off")
+    window = range(RESUME_KILL, RESUME_ADAM)
+    check(all(any(s % every == 0 for s in window) for every in (
+        spec.resample_every, spec.density_every, spec.plateau_every)),
+        "5j: a draw, a density refresh and a plateau check must fall in "
+        "the resumed window")
+    held = held_shapes(resume_kernel_cases())
+
+    def run(out, **kw):
+        lines = []
+        reset_launches()
+        t0 = time.perf_counter()
+        with kernel_shapes() as shapes, adam_launchers() as built:
+            res = train.run_training(problem, spec, output_dir=str(out),
+                                     log_fn=lines.append, device=dev, **kw)
+        torch.cuda.synchronize()
+        return res, lines, read_launches(), shapes, built, (
+            time.perf_counter() - t0)
+
+    # (a) run A; run B killed after a mid-scan save, then resumed
+    res_a, lines_a, launches_a, shapes_a, _, secs_a = run(root / "a")
+    save = checkpoint.save_phase_state
+
+    class Killed(Exception):
+        pass
+
+    def killer(path, done, state, hist, layout):
+        save(path, done, state, hist, layout)
+        if done >= RESUME_KILL:
+            raise Killed(f"killed after the save at step {done}")
+
+    checkpoint.save_phase_state = killer
+    try:
+        run(root / "b")
+        check(False, "5j: run B was not killed")
+    except Killed as e:
+        print(f"  run B: {e}")
+    finally:
+        checkpoint.save_phase_state = save
+    res_b, lines_b, launches, shapes_b, built, secs_b = run(root / "b",
+                                                            resume=True)
+    resumed = [ln for ln in lines_b if "resuming Adam mid-stage" in ln]
+    check(resumed == [f"stage 1: resuming Adam mid-stage at step "
+                      f"{RESUME_KILL}/{RESUME_ADAM}"],
+          f"5j: the resume log line: {resumed}")
+    print(f"  | {resumed[0]}")
+    n_adam = adam_steps_logged(lines_b)
+    check(n_adam == adam_steps_logged(lines_a) and len(n_adam) == 1,
+          f"5j: Adam steps {adam_steps_logged(lines_a)} (A), {n_adam} (B)")
+    digests = {k: (history_digest(r.history),
+                   params_digest(r.stages[0].params))
+               for k, r in (("A", res_a), ("B", res_b))}
+    print(f"  run A {secs_a:.1f} s, run B resumed {secs_b:.1f} s; Adam steps "
+          f"{n_adam[0]}; history digests A {digests['A'][0]} B "
+          f"{digests['B'][0]}; final-params digests A {digests['A'][1]} B "
+          f"{digests['B'][1]}; rel-L2 {res_a.rel_l2:.6e} / "
+          f"{res_b.rel_l2:.6e}")
+    check(digests["A"] == digests["B"],
+          "5j: the resumed run parts from the uninterrupted one")
+    steps_b = n_adam[0] - RESUME_KILL
+    check(launches["adam"] == steps_b and len(built) == 1
+          and built[0].start == RESUME_KILL + 1
+          and built[0].t == n_adam[0] + 1,
+          f"5j: B3 launched {launches['adam']} times for {steps_b} resumed "
+          f"steps; launchers from {[x.start for x in built]}, device step "
+          f"{[x.t for x in built]}")
+    print(f"  resumed phase: B3 launcher from t = {built[0].start}, device "
+          f"step {built[0].t} after it ({steps_b} resumed steps); launches "
+          f"{launches} (run A {launches_a})")
+    for k in ("taylor2_fwd", "taylor2_bwd"):
+        check(launches[k] >= steps_b,
+              f"5j: {k} launched {launches[k]} times for {steps_b} steps")
+    check_held("resume", shapes_a + shapes_b, held)
+    sizes = set(resume_adam_cases())
+    check(all((x.p.numel(), x.start) in sizes for x in built),
+          f"5j: B3 launchers at (n, start) "
+          f"{[(x.p.numel(), x.start) for x in built]}, phase 3c holds "
+          f"{sorted(sizes)}")
+
+    # (b) one L-BFGS round from run A's Adam result, on the CPU and here
+    spec_l = dataclasses.replace(spec, tail_max=0, stages=(
+        dataclasses.replace(spec.stages[0], lbfgs_epochs=3, lbfgs_rounds=1,
+                            lbfgs_grid=0),))
+    rounds = {}
+    for where in ("cpu", None):
+        calls = [0]
+
+        def one_round(where=where, calls=calls):
+            calls[0] += 1
+            out = root / f"lbfgs_{where or 'card'}_{calls[0]}"
+            out.mkdir(parents=True)
+            shutil.copy(root / "a" / "adam_state_stage_1.npz", out)
+            lines = []
+            res = train.run_training(
+                problem, dataclasses.replace(spec_l, lbfgs_device=where),
+                output_dir=str(out), resume=True, log_fn=lines.append,
+                device=dev)
+            return res, lines
+
+        # one timed call, no warm-up: the kernels ran in (a)
+        (res, lines), secs = profiling.timed(one_round, warmup=0, iters=1)
+        hist = res.stages[0].history
+        check(any(f"resuming Adam mid-stage at step {RESUME_ADAM}/" in ln
+                  for ln in lines), "5j-b: the round did not resume from "
+                                    "run A's phase file")
+        check(hist.shape[0] > RESUME_ADAM + 1 and bool(np.isfinite(
+            hist).all()), f"5j-b: history of shape {hist.shape}")
+        row0, last = float(hist[RESUME_ADAM, 0]), float(hist[-1, 0])
+        check(last <= row0, f"5j-b ({where or 'card'}): final loss {last} "
+                            f"above row 0 {row0}")
+        devs = {x.device.type for x in leaves_of(res.stages[0].params)}
+        check(devs == {"cuda"}, f"5j-b: params returned on {devs}")
+        rounds[where or "card"] = (row0, last, secs,
+                                   hist.shape[0] - RESUME_ADAM - 1)
+    (c0, c1, c_s, c_n), (g0, g1, g_s, g_n) = rounds["cpu"], rounds["card"]
+    rel = abs(c0 - g0) / abs(g0)
+    print(f"  one L-BFGS round (lbfgs_epochs 3: one iterate) on a density "
+          f"draw of {RECIPE_N:,} points from run A's Adam result, "
+          f"run_training(resume=True) a call (profiling.timed): "
+          f"lbfgs_device='cpu' {c_s:.3f} s (loss {c0:.6e} -> {c1:.6e}, {c_n} "
+          f"rows) vs on the card {g_s:.3f} s ({g0:.6e} -> {g1:.6e}, {g_n} "
+          f"rows); row 0 relative difference {rel:.3e} (bar "
+          f"{RESUME_LBFGS_RTOL}); {torch.get_num_threads()} CPU threads, "
+          f"{card}")
+    check(rel <= RESUME_LBFGS_RTOL, f"5j-b: row 0 on the CPU {c0}, on the "
+                                    f"card {g0}")
+
+    # (c) a profiler trace and StepTimer on the flagship Adam step
+    profile_steps(dev, card, root / "trace")
+    print(f"  phase 5j: {time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches
+
+
+def profile_steps(dev, card, logdir):
+    """PROFILE_STEPS flagship Adam steps (6x80 hard BC, 46,000 points,
+    kernel engine: B1 + B2 + B3) under profiling.trace: device operations
+    a step (kernels, copies and sets in the trace) and the device-busy
+    share, the union of their intervals over the span of the steps (an
+    annotation around them, ended by a synchronisation); then
+    TIMER_STEPS steps under profiling.StepTimer (CUDA events) with the
+    host clock around each."""
+    import torch
+
+    from tpinn_torch import problems
+    from tpinn_torch.core import loss as loss_mod
+    from tpinn_torch.utils import profiling
+
+    problem = problems.with_hard_bc(problems.annulus_laplace())
+    pred, compiled, params, data, lw = loss_setup(problem, annulus_spec(80),
+                                                  dev, counts=RECIPE_COUNTS)
+    with torch.no_grad():
+        ref = loss_mod.make_loss(pred, compiled)(
+            params, data, lw, torch.ones((), device=dev))[1][0]
+    step = adam_step(loss_mod.make_loss(pred, compiled, engine="kernel"),
+                     params, data, lw, ref)
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    with profiling.trace(str(logdir)):
+        with torch.profiler.record_function("tpinn_adam_steps"):
+            for _ in range(PROFILE_STEPS):
+                step()
+            torch.cuda.synchronize()
+    events = json.loads((logdir / "trace.json").read_text())["traceEvents"]
+    span = [e for e in events if e.get("name") == "tpinn_adam_steps"
+            and e.get("cat") == "user_annotation"]
+    device = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                    for e in events if e.get("ph") == "X" and e.get("cat")
+                    in ("kernel", "gpu_memcpy", "gpu_memset"))
+    if span and device:
+        lo = float(span[0]["ts"])
+        hi = lo + float(span[0]["dur"])
+        busy, end = 0.0, lo
+        for a, b in device:
+            a, b = max(a, end), min(b, hi)
+            if b > a:
+                busy += b - a
+                end = b
+        print(f"  profiling.trace of {PROFILE_STEPS} flagship Adam steps: "
+              f"{len(device) / PROFILE_STEPS:.1f} device operations a step, "
+              f"{(hi - lo) / 1e3 / PROFILE_STEPS:.3f} ms a step, device busy "
+              f"{busy / 1e3 / PROFILE_STEPS:.3f} ms a step, share "
+              f"{busy / (hi - lo):.4f} (trace: {logdir / 'trace.json'}), "
+              f"{card}")
+    else:
+        print(f"  profiling.trace: {len(device)} device events, "
+              f"{len(span)} step spans in the trace: device-busy share "
+              f"not measured")
+    timer, host = profiling.StepTimer(), []
+    for _ in range(TIMER_STEPS):
+        t0 = time.perf_counter()
+        with timer.step() as t:
+            t.observe(step())
+        host.append(time.perf_counter() - t0)
+    print(f"  StepTimer over {TIMER_STEPS} flagship Adam steps (CUDA "
+          f"events): median {statistics.median(timer.times) * 1e3:.3f} ms, "
+          f"{timer.summary()}; host clock around each step (synchronised): "
+          f"median {statistics.median(host) * 1e3:.3f} ms, {card}")
+
+
+def resume_only() -> None:
+    """Phases 1 and 2, B3 from a resumed step (phase 3c's b3_resumed) and
+    phase 5j alone."""
+    import torch
+
+    card = card_line()
+    print(f"  card: {card}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda", 0)
+    phase("2. build")
+    phase_build()
+    phase("3c. B3 from a resumed step")
+    b3_resumed(dev)
+    phase("5j. mid-stage resume, lbfgs_device, profiling")
+    launches = phase_resume(dev, card)
+    print(f"  launches of the resumed run: {launches}")
+
+
 def queued_ms(fn, blocker) -> float:
     """Device time per launch of ``fn`` in a queue of QUEUED launches: the
     host enqueues them while ``blocker`` (a long kernel) still runs, so the
@@ -4048,6 +4457,7 @@ def adam_step(loss_fn, params, data, lw, ref, plain=False):
                 adam.adam_update_reference(g, flat.detach(), m, v, lr, t[0])
             else:
                 launcher.step(g)
+        return loss_n.detach()
 
     return step
 
@@ -4924,15 +5334,21 @@ def main() -> int:
     for k in KERNELS:
         check(calc_launches[k] > 0, f"{k} launched no time on the "
               f"calculator path")
-    # the kernels line's launches: the five newest main paths, marching
+
+    phase("5j. mid-stage resume, lbfgs_device, profiling")
+    resume_launches = phase_resume(dev, card)
+    for k in KERNELS:
+        check(resume_launches[k] > 0, f"{k} launched no time in the resumed "
+              f"run")
+    # the kernels line's launches: the six newest main paths, marching
     # (B1, B2, B3), coupled systems (B3 only), scalar inverse (B1, B2, B3),
-    # ensembles and patches (B1, B2, B3; B3 only) and the calculator (B1,
-    # B2, B3), each read on its own
+    # ensembles and patches (B1, B2, B3; B3 only), the calculator (B1, B2,
+    # B3) and the resumed flagship run (B1, B2, B3), each read on its own
     launches = {k: sum(v[k] for v in (*march_launches.values(),
                                       *system_launches.values(),
                                       *inverse_launches.values(),
                                       *ep_launches.values(),
-                                      calc_launches))
+                                      calc_launches, resume_launches))
                 for k in KERNELS}
 
     phase("6. timing")
@@ -5019,12 +5435,14 @@ def main() -> int:
                                     inverse_launches.items()},
                                  **{k: v[src] for k, v in
                                     ep_launches.items()},
-                                 "calculator": calc_launches[src]}, **extra})
+                                 "calculator": calc_launches[src],
+                                 "resume": resume_launches[src]}, **extra})
         k = kernels[-1]
         print(f"  {name}: {k['ms']:.4f} ms, bound {k['bound_ms']:.5f} ms by "
               f"{k['bound_by']} ({100 * k['bound_ms'] / k['ms']:.1f}% of the "
               f"time), launches on the marching, system, inverse, ensemble, "
-              f"patch and calculator paths {launches[src]}, on {card}")
+              f"patch, calculator and resume paths {launches[src]}, on "
+              f"{card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5067,6 +5485,8 @@ if __name__ == "__main__":
         patch_recipe()
     elif sys.argv[1:2] == ["--calculator-only"]:
         calculator_only()
+    elif sys.argv[1:2] == ["--resume-only"]:
+        resume_only()
     elif sys.argv[1:2] == ["--determinism"] and len(sys.argv) <= 3:
         determinism(sys.argv[2] if len(sys.argv) == 3 else None)
     else:

@@ -501,3 +501,47 @@ def test_calculator_sessions_on_card(cuda_device, tmp_path):
     logs = [finish(sid) for sid in ("a", "b")]
     assert sum("waiting for the device" in log for log in logs) == 1
     assert torch.backends.cuda.matmul.allow_tf32 == before
+
+
+@pytest.mark.cuda
+def test_midstage_resume_on_card_bit_exact(cuda_device, tmp_path,
+                                           monkeypatch):
+    """A run_training on the card (B1, B2, B3) killed after its step-100
+    phase file and resumed ends bit for bit where the uninterrupted run
+    ends, the draws and density refreshes inside the resumed window."""
+    from tpinn_torch import problems
+    from tpinn_torch.core import optim, train
+
+    st = train.StageSpec(depth=2, width=16, scl=1.0, epsil=1.0,
+                         adam_epochs=200, lbfgs_epochs=30)
+    spec = train.TrainSpec(
+        n_col=128, n_band=32, n_adaptive=32, n_bd=16, testing_size=(64,),
+        lw=(1.0, 0.0), grid=41, stages=(st,), resample_every=30,
+        density_every=40, plateau_every=60, tail_max=20, log_every=5,
+        checkpoint_every=50)
+
+    def run(out, **kw):
+        return train.run_training(problems.poisson_1d(), spec,
+                                  output_dir=str(out), device="cuda", **kw)
+
+    mlp_taylor.LAUNCHES = taylor_vjp.LAUNCHES = adam.LAUNCHES = 0
+    res_a = run(tmp_path / "a")
+    assert min(mlp_taylor.LAUNCHES, taylor_vjp.LAUNCHES, adam.LAUNCHES) > 0
+    orig = checkpoint.save_phase_state
+
+    def killer(path, done, state, hist, layout):
+        orig(path, done, state, hist, layout)
+        if done >= 100:
+            raise KeyboardInterrupt
+
+    monkeypatch.setattr(checkpoint, "save_phase_state", killer)
+    with pytest.raises(KeyboardInterrupt):
+        run(tmp_path / "b")
+    monkeypatch.setattr(checkpoint, "save_phase_state", orig)
+    lines = []
+    res_b = run(tmp_path / "b", resume=True, log_fn=lines.append)
+    assert "stage 1: resuming Adam mid-stage at step 100/200" in lines
+    np.testing.assert_array_equal(res_b.history, res_a.history)
+    for a, b in zip(optim.tree_leaves(res_a.stages[0].params),
+                    optim.tree_leaves(res_b.stages[0].params)):
+        assert torch.equal(a, b)

@@ -248,8 +248,17 @@ def test_adam_refusals():
     args = (torch.Generator(), {"w": torch.zeros(2)},
             {"target": torch.ones(2)}, torch.ones(3, 3), torch.ones(1),
             torch.tensor(1.0))
-    with pytest.raises(NotImplementedError, match="mid-stage"):
-        phase(*args, ckpt_cb=lambda *a: None)
+    # a state saved at a step this phase does not have
+    state0 = phase.make_state0(args[0], args[1], args[2], args[3], args[5])
+    with pytest.raises(ValueError, match="outside"):
+        phase(*args, init=(2, state0, torch.zeros(2, 3)))
+    # the checkpoint hook: once, at the end of the one-step loop (not in
+    # the tail), with the state after that step
+    seen = []
+    phase(*args, ckpt_cb=lambda done, state, hist: seen.append(
+        (done, state["p"][0].clone(), hist.shape)))
+    assert [(d, h) for d, _, h in seen] == [(1, (1, 3))]
+    np.testing.assert_allclose(seen[0][1].numpy(), 1e-3, rtol=1e-5)
 
 
 # ---------------------------------------------------------------------------

@@ -71,16 +71,18 @@ def _hf_poisson(w):
     )
 
 
-def _both(name, depth=2, width=8, seed=0, f64=False):
+def _both(name, depth=2, width=8, seed=0, f64=False, **family):
     """The case's patched predictor in both packages on the same stacked
     weights: (jax predictor, jax params, torch predictor, torch params,
     points [n, d] in numpy), in float32 or (``f64``) float64; call the
-    JAX side of a float64 case under force_x64."""
+    JAX side of a float64 case under force_x64.  ``family``: the
+    MLPSpec fields of another net family (Fourier features, modified)."""
     n, lb, ub, _, pad = CASES[name]
     jdt, tdt, ndt = ((jnp.float64, torch.float64, np.float64) if f64 else
                      (jnp.float32, torch.float32, np.float32))
     pspec_j = jpatch.PatchSpec(n=n)
-    mspec_j = jnet.MLPSpec(depth=depth, width=width, scl=1.3, epsil=0.7)
+    mspec_j = jnet.MLPSpec(depth=depth, width=width, scl=1.3, epsil=0.7,
+                           **family)
     with force_x64() if f64 else contextlib.nullcontext():
         pred_j = jpatch.make_patch_predictor(mspec_j, pspec_j, lb, ub, jdt,
                                              pad_features=pad)
@@ -89,7 +91,7 @@ def _both(name, depth=2, width=8, seed=0, f64=False):
                 jax.random.PRNGKey(seed))
         c, h = (np.asarray(a) for a in pred_j.tpinn_patch)
     pred_t = make_patch_predictor(
-        net.MLPSpec(depth=depth, width=width, scl=1.3, epsil=0.7),
+        net.MLPSpec(depth=depth, width=width, scl=1.3, epsil=0.7, **family),
         PatchSpec(n=n), lb, ub, tdt, pad_features=pad)
     p_t = params_from_numpy(jax.tree.map(np.asarray, p_j), "cpu", tdt)
     rng = np.random.default_rng(seed)
@@ -136,6 +138,23 @@ def test_predictor_matches_tpinn(name):
     assert len(tree_leaves(p_t)) == 2 * 3
     assert all(x.shape[0] == PatchSpec(n=CASES[name][0]).count
                for x in tree_leaves(p_t))
+
+
+@pytest.mark.parametrize("family", [
+    dict(fourier_features=6, fourier_scale=2.0), dict(modified=True)],
+    ids=["fourier", "modified"])
+@pytest.mark.parametrize("name", ["1d-8-pad3", "2d-2x3-pad0"])
+def test_predictor_of_other_families_matches_tpinn(name, family):
+    """Fourier-feature and modified patch nets (tpinn's jax.vmap over
+    net.mlp_apply takes every family) on carried stacked weights."""
+    pred_j, p_j, pred_t, p_t, z = _both(name, **family)
+    u_j = np.asarray(jax.jit(pred_j)(p_j, jnp.asarray(z)))
+    u_t = pred_t(p_t, torch.from_numpy(z))
+    assert u_t.shape == (z.shape[0], 1)
+    np.testing.assert_allclose(u_t.detach().numpy(), u_j, rtol=1e-5,
+                               atol=1e-6)
+    assert set(p_t) == ({"layers", "fourier_b"} if "fourier_features" in
+                        family else {"layers", "gate_u", "gate_v"})
 
 
 def test_partition_of_unity_positive_and_local():
@@ -314,15 +333,28 @@ def test_finished_run_resumes_without_training(served_run, tmp_path):
 
 
 @pytest.mark.parametrize("what", ["checkpoint_every", "mesh", "cuda"])
-def test_refusals(what, monkeypatch):
-    spec = _serve_spec(checkpoint_every=20 if what == "checkpoint_every"
-                       else 0)
+def test_refusals(what, monkeypatch, tmp_path):
+    """mesh and a missing card are refused; checkpoint_every, refused
+    before mid-Adam checkpoints were ported, now runs and saves the phase
+    (and lbfgs_device, which run_patched does not take, is refused)."""
+    if what == "checkpoint_every":
+        spec = dataclasses.replace(_serve_spec(checkpoint_every=20),
+                                   stages=(StageSpec(
+                                       depth=2, width=8, scl=1.0, epsil=1.0,
+                                       adam_epochs=20, lbfgs_epochs=0),))
+        with pytest.raises(ValueError, match="lbfgs_device"):
+            run_patched(_hf_poisson(2 * PI), dataclasses.replace(
+                spec, lbfgs_device="cpu"), PatchSpec(n=(2,)), device="cpu")
+        run_patched(_hf_poisson(2 * PI), spec, PatchSpec(n=(2,)),
+                    output_dir=str(tmp_path), device="cpu")
+        assert (tmp_path / "adam_state_stage_1.npz").exists()
+        return
     kw = {"mesh": object()} if what == "mesh" else {}
     if what == "cuda":
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     err = RuntimeError if what == "cuda" else NotImplementedError
     with pytest.raises(err, match="cuda" if what == "cuda" else "Queue A"):
-        run_patched(_hf_poisson(2 * PI), spec, PatchSpec(n=(2,)),
+        run_patched(_hf_poisson(2 * PI), _serve_spec(), PatchSpec(n=(2,)),
                     device="cuda" if what == "cuda" else "cpu", **kw)
 
 

@@ -274,8 +274,8 @@ def test_train_refusals():
                     (dict(lsq_polish="sweep"), ValueError),
                     (dict(deflation="on"), ValueError),
                     (dict(adam_precision="bf16"), ValueError),
-                    (dict(checkpoint_every=10), NotImplementedError),
-                    (dict(lbfgs_device="cpu"), NotImplementedError)):
+                    (dict(lbfgs_device="tpu"), ValueError),
+                    (dict(lbfgs_device="cuda"), ValueError)):
         with pytest.raises(exc):
             ttrain.run_training(problem, dataclasses.replace(base, **kw),
                                 device="cpu")

@@ -297,8 +297,9 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--resume", action="store_true")
     t.add_argument("--checkpoint-every", type=int, default=0,
                    help="save resumable mid-Adam state every N steps "
-                        "(TrainSpec.checkpoint_every; not ported yet: "
-                        "> 0 raises); 0 = final params only")
+                        "(TrainSpec.checkpoint_every); 0 = final params "
+                        "only. With --resume, a killed run restarts at "
+                        "the last saved chunk")
     t.add_argument("--f64-polish", action="store_true")
     _device(t)
     t.add_argument("--recipe", action="store_true",

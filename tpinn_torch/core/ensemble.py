@@ -104,7 +104,9 @@ def run_ensemble_training(
     defect-correct the combination.
 
     The default seeds are ``spec.seed + 1000·i``.  ``resume=True`` passes
-    through to each member.  Member checkpoints land in
+    through to each member (finished stages reload, a stage killed
+    mid-Adam continues from its ``adam_state_stage_N.npz`` when
+    ``spec.checkpoint_every > 0``).  Member checkpoints land in
     ``output_dir/member_<i>/``; the combination record in
     ``output_dir/ensemble.json``."""
     if seeds is None:

@@ -27,7 +27,9 @@ after the BC groups.
 
 Deviations from tpinn: ``run_inverse`` takes a keyword-only ``device``,
 applies ``adam_precision`` as run_training does and refuses what
-train._check_supported refuses (``mesh``: ROADMAP.md Queue A item 14);
+train._check_supported refuses (``mesh``: ROADMAP.md Queue A item 14),
+and ``checkpoint_every > 0`` and a ``lbfgs_device`` (tpinn writes no
+mid-stage checkpoint here and ignores both) with ValueError;
 its random streams are ``spec.seed`` streams 0, 1 and 2 (net init, Adam
 draws, L-BFGS draw) as in run_system, where tpinn splits one PRNG key;
 it logs "inverse: Adam done (N steps), lam=…" where tpinn logs
@@ -203,6 +205,12 @@ def run_inverse(
     recovered coefficients with the observation points as the collocation
     set."""
     _check_supported(spec, mesh)
+    if spec.checkpoint_every > 0:
+        raise ValueError("run_inverse writes no mid-stage Adam checkpoint: "
+                         "checkpoint_every must be 0")
+    if spec.lbfgs_device is not None:
+        raise ValueError("run_inverse runs L-BFGS on the training device: "
+                         "lbfgs_device must be None")
     if not spec.stages:
         spec = spec.with_default_stages()
     st = spec.stages[0]

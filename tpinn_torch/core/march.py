@@ -170,10 +170,12 @@ def run_time_marching(
     ``device`` ("cuda" fails without a card) and compose the piecewise
     predictor.  Each window is a full ``run_training`` of ``spec`` (total
     budget = n_windows × spec), so multi-stage chains, causal weighting
-    inside the window and stage-level resume work per window unchanged;
-    ``resume=True`` short-circuits finished windows from their stage
-    checkpoints, and ``mesh`` goes through to ``run_training`` (which
-    refuses it: ROADMAP.md Queue A item 14).
+    inside the window, mid-Adam checkpoints (``checkpoint_every``) and
+    resume work per window unchanged; ``resume=True`` short-circuits
+    finished windows from their stage checkpoints and continues a killed
+    window's stage from its ``adam_state_stage_N.npz``, and ``mesh`` goes
+    through to ``run_training`` (which refuses it: ROADMAP.md Queue A item
+    14).
 
     Writes ``march.json`` and one checkpoint directory per window under
     ``output_dir``, and for 1-D/2-D problems the composite's artifact set

@@ -213,7 +213,7 @@ def mlp_hidden(params: dict, h: Tensor, spec: MLPSpec) -> Tensor:
     acth = activation(spec.act_hidden)
     if spec.fourier_features:
         proj = torch.matmul(h, params["fourier_b"])
-        h = torch.cat([torch.cos(proj), torch.sin(proj)], dim=1)
+        h = torch.cat([torch.cos(proj), torch.sin(proj)], dim=-1)
     first, *hidden, _last = params["layers"]
     if spec.modified:
         gu, gv = params["gate_u"], params["gate_v"]

@@ -18,13 +18,21 @@ Adam
 
 The learning rate is a 1-element device tensor that the plateau rule
 changes in place, and the loss rows go into a preallocated device
-history: the main loop never reads the host.  Only the tail condition and
-the ``log_fn`` replay (every ``10·log_every`` steps) do.  The parameter
-update is kernel B3 (tpinn_torch.kernels.adam) on CUDA tensors, its plain
-version on CPU tensors, through one ``FusedAdam`` launcher per vector
-built at the start of the phase for ``epochs + tail_max`` steps: with
-``layout="flat"`` ONE vector holds every parameter (one launch per step,
-the loss sees views of it), with ``layout="tree"`` one per leaf.
+history: the main loop never reads the host.  Only the tail condition,
+the ``log_fn`` replay (every ``10·log_every`` steps) and a mid-stage
+checkpoint's save do.  The parameter update is kernel B3
+(tpinn_torch.kernels.adam) on CUDA tensors, its plain version on CPU
+tensors, through one ``FusedAdam`` launcher per vector built at the start
+of the phase for ``epochs + tail_max`` steps: with ``layout="flat"`` ONE
+vector holds every parameter (one launch per step, the loss sees views of
+it), with ``layout="tree"`` one per leaf.
+
+Checkpoint and resume: ``ckpt_cb(done, state, hist)`` gets the whole
+phase state at the end of every log chunk (``10·log_every`` steps, with or
+without a ``log_fn``) and at the end of the main loop; ``init=(done,
+state, hist)`` continues there, the launchers built at ``start = done +
+1`` so that B3's bias corrections and device step go on where they were.
+A resumed phase ends bit for bit where the uninterrupted one ends.
 
 L-BFGS
 ------
@@ -148,42 +156,84 @@ def make_adam_phase(
     :param log_fn: optional ``(step, loss_info_row)``, replayed from the
         history on the host every ``10 * log_every`` steps for each step
         with ``step > 0 and step % log_every == 0``.
-    :returns: ``phase(generator, params, data, F, lw, ref)`` ->
-        AdamPhaseResult.  The caller's params are not modified.
+    :returns: ``phase(generator, params, data, F, lw, ref, ckpt_cb=None,
+        init=None)`` -> AdamPhaseResult, with ``phase.make_state0(
+        generator, params, data, F, ref)`` the template of its state.  The
+        caller's params are not modified.
     """
     cfg = config
-    ring_n = max(1, cfg.plateau_every)
+    # the plateau ring; where the rule never fires in the main loop, one
+    # slot (plateau_every=10**9, "off", would otherwise take gigabytes)
+    ring_n = cfg.plateau_every if 0 < cfg.plateau_every <= cfg.epochs else 1
     half = cfg.plateau_every // 2
     tail_window = max(1, int(round(cfg.epochs / 5)))
     log_chunk = max(cfg.log_every * 10, 1)
 
-    def phase(gen, params, data, F, lw, ref, ckpt_cb=None, init=None):
-        if ckpt_cb is not None or init is not None:
-            raise NotImplementedError(
-                "mid-stage Adam checkpoints are not ported to tpinn_torch yet "
-                "(ROADMAP.md Queue A item 9, a later PR)")
+    def vectors(params):
+        """The phase's Adam vectors of ``params`` (new tensors) and
+        ``to_tree(vectors)`` giving the tree as views of them."""
         leaves = tree_leaves(params)
-        dev = leaves[0].device
         if cfg.layout == "flat":
             flat, unravel = ravel_tree(params)
-            vecs = [flat]
+            return [flat], lambda vs: unravel(vs[0])
+        shapes = [tuple(x.shape) for x in leaves]
+        vecs = [x.detach().reshape(-1).clone() for x in leaves]
+        return vecs, lambda vs: _rebuild(params, iter(
+            v.view(s) for v, s in zip(vs, shapes)))
 
-            def to_tree(vs):
-                return unravel(vs[0])
-        else:
-            vecs = [x.detach().reshape(-1).clone() for x in leaves]
-            shapes = [tuple(x.shape) for x in leaves]
+    def make_state0(gen, params, data, F, ref):
+        """The phase state at step 0: the template a mid-stage checkpoint
+        loads into (utils.checkpoint.load_phase_state).  Everything the
+        loop reads: each Adam vector ``p`` with its moments ``m`` and
+        ``v``, the learning rate, the plateau ring, the point set, the
+        density and the generator's state."""
+        vecs, _ = vectors(params)
+        return {"p": vecs, "m": [torch.zeros_like(x) for x in vecs],
+                "v": [torch.zeros_like(x) for x in vecs],
+                "lr": torch.full((1,), cfg.lr, dtype=vecs[0].dtype,
+                                 device=vecs[0].device),
+                "ring": torch.zeros((ring_n,), dtype=ref.dtype,
+                                    device=vecs[0].device),
+                "data": data, "F": F, "gen": gen.get_state()}
 
-            def to_tree(vs):
-                return _rebuild(params, iter(v.view(s)
-                                             for v, s in zip(vs, shapes)))
-        lr = torch.full((1,), cfg.lr, dtype=vecs[0].dtype, device=dev)
-        # one launcher per vector for the whole phase: step t = 1, 2, ...
-        # counted on the device, its bias corrections tabled once
-        updates = [adam_kernel.FusedAdam(
-            x.detach(), torch.zeros_like(x), torch.zeros_like(x), lr,
-            cfg.epochs + cfg.tail_max, cfg.b1, cfg.b2, cfg.eps) for x in vecs]
+    def phase(gen, params, data, F, lw, ref, ckpt_cb=None, init=None):
+        """Run the phase.
+
+        :param ckpt_cb: optional ``ckpt_cb(done, state, hist)``, called at
+            the end of every log chunk (``10 * log_every`` steps) and once
+            more at the end of the main loop, after the step's resample,
+            density refresh and plateau rule: ``state`` (make_state0's
+            structure, the live tensors) is what step ``done`` reads,
+            ``hist`` the loss rows ``[:done]``.  The tail is not
+            checkpointed.
+        :param init: optional ``(done, state, hist)`` from a ``ckpt_cb``
+            (utils.checkpoint.load_phase_state): the loop continues at
+            step ``done`` with the same numerics as a run that was never
+            stopped (``gen`` takes the saved generator state).
+        """
+        vecs, to_tree = vectors(params)
+        dev = vecs[0].device
         h_dtype = ref.dtype
+        hist = torch.zeros((cfg.epochs, info_width), dtype=h_dtype, device=dev)
+        done, state, hist0 = init if init is not None else (
+            0, make_state0(gen, params, data, F, ref), hist[:0])
+        done = int(done)
+        if not 0 <= done <= cfg.epochs:
+            raise ValueError(f"init: step {done} lies outside this "
+                             f"phase's {cfg.epochs} steps")
+        for x, saved in zip(vecs, state["p"]):
+            x.copy_(saved)
+        ms = [x.clone() for x in state["m"]]
+        vs = [x.clone() for x in state["v"]]
+        lr, ring = state["lr"].clone(), state["ring"].clone()
+        data, F = state["data"], state["F"]
+        gen.set_state(state["gen"])
+        hist[:done] = hist0[:done].to(device=dev, dtype=h_dtype)
+        # one launcher per vector for the rest of the phase: step t = done
+        # + 1, ... counted on the device, its bias corrections tabled once
+        updates = [adam_kernel.FusedAdam(
+            x.detach(), m, v, lr, cfg.epochs + cfg.tail_max - done, cfg.b1,
+            cfg.b2, cfg.eps, start=done + 1) for x, m, v in zip(vecs, ms, vs)]
 
         def step_update():
             for x in vecs:
@@ -196,10 +246,8 @@ def make_adam_phase(
                                 else g.contiguous())
             return info.detach()
 
-        hist = torch.zeros((cfg.epochs, info_width), dtype=h_dtype, device=dev)
-        ring = torch.zeros((ring_n,), dtype=h_dtype, device=dev)
-        logged = 0
-        for step in range(cfg.epochs):
+        logged = done
+        for step in range(done, cfg.epochs):
             info = step_update()
             hist[step] = info
             ring[step % ring_n] = info[0]
@@ -218,14 +266,19 @@ def make_adam_phase(
                     halve = mm12 / lc2.std(correction=0) < cfg.plateau_ratio
                     lr.copy_(torch.clamp(torch.where(halve, lr * 0.5, lr),
                                          min=cfg.lr_min))
-            if log_fn is not None and ((step + 1) % log_chunk == 0
-                                       or step + 1 == cfg.epochs):
-                rows = hist[logged:step + 1].cpu().numpy()
-                for k, row in enumerate(rows):
-                    s = logged + k
-                    if s > 0 and s % cfg.log_every == 0:
-                        log_fn(s, row)
-                logged = step + 1
+            if (step + 1) % log_chunk == 0 or step + 1 == cfg.epochs:
+                if log_fn is not None:
+                    rows = hist[logged:step + 1].cpu().numpy()
+                    for k, row in enumerate(rows):
+                        s = logged + k
+                        if s > 0 and s % cfg.log_every == 0:
+                            log_fn(s, row)
+                    logged = step + 1
+                if ckpt_cb is not None:
+                    ckpt_cb(step + 1, {
+                        "p": [x.detach() for x in vecs], "m": ms, "v": vs, "lr": lr, "ring": ring,
+                        "data": data, "F": F, "gen": gen.get_state()},
+                        hist[:step + 1])
 
         def result(history, n_valid):
             out = detach_tree(to_tree(vecs))
@@ -249,6 +302,7 @@ def make_adam_phase(
             n_tail += 1
         return result(torch.cat([hist, tail], dim=0), cfg.epochs + n_tail)
 
+    phase.make_state0 = make_state0
     return phase
 
 

@@ -13,13 +13,18 @@ jointly through the summed predictor.
 All P nets evaluate at all N points as one batched product chain over
 stacked parameters (every leaf has a leading P axis): ``torch.matmul`` of
 ``[P, N, k]`` by ``[P, k, W]``, the counterpart of tpinn's ``jax.vmap``
-over the stacked tree.  The predictor advertises no structured partials,
+over the stacked tree, for every net family (plain, Fourier features,
+modified gating).  The predictor advertises no structured partials,
 so its derivatives take the generic nested-jvp engine (kernels B1 and B2
 serve one scalar net); the Adam update is kernel B3 on the stacked
 vector(s) on the card.
 
-``mesh`` (ROADMAP.md Queue A item 14) and mid-Adam checkpoints (item 9)
-are not ported and raise NotImplementedError (train._check_supported).
+With ``checkpoint_every > 0`` a run saves its Adam phase to
+``adam_state_stage_1.npz`` and ``resume=True`` continues a killed run from
+it, as run_training does.  ``mesh`` (ROADMAP.md Queue A item 14) is not
+ported and raises NotImplementedError (train._check_supported);
+``lbfgs_device`` is refused with ValueError (tpinn's run_patched ignores
+it).
 """
 
 from __future__ import annotations
@@ -37,8 +42,9 @@ import torch
 
 from tpinn_torch.core import loss as loss_mod
 from tpinn_torch.core import net, optim, pde, sample
-from tpinn_torch.core.train import (_DTYPES, ProblemSpec, TrainSpec,
-                                    _check_supported, eval_grid,
+from tpinn_torch.core.train import (_DTYPES, _UNUSABLE, ProblemSpec,
+                                    TrainSpec, _check_supported, _load_phase,
+                                    _phase_saver, eval_grid,
                                     make_density_fn, one_run_at_a_time,
                                     resolve_device, resolve_residual_weight,
                                     resolve_testing_size)
@@ -105,9 +111,6 @@ def make_patch_predictor(
     ``stacked_params`` carries a leading P axis on every leaf (init via
     :func:`init_patch_params`).  Each patch's features are the min-max
     map of z to that patch's own box, padded as net.FeatureMap pads."""
-    if not mspec.is_plain:
-        raise ValueError("patch nets are plain dense MLPs (no Fourier "
-                         "features, no modified gating)")
     centers, half = patch_geometry(patch, lb, ub, dtype, device)
     d = centers.shape[1]
     n_pad = net.feature_map_for((net.MINMAX,) * d,
@@ -134,8 +137,11 @@ def make_patch_predictor(
             feats = torch.cat([feats] + [feats[..., :1]] * n_pad, dim=-1)
         # net.mlp_apply on P nets at once: [P, N, k] @ [P, k, W], the
         # biases [P, W] broadcast over the points as [P, 1, W]; [P, N, 1]
-        batched = {"layers": [{"w": layer["w"], "b": layer["b"][:, None]}
-                              for layer in stacked["layers"]]}
+        batched = {k: ({"w": v["w"], "b": v["b"][:, None]}
+                       if k in ("gate_u", "gate_v") else v)
+                   for k, v in stacked.items() if k != "layers"}
+        batched["layers"] = [{"w": layer["w"], "b": layer["b"][:, None]}
+                             for layer in stacked["layers"]]
         u_all = mspec.epsil * net.mlp_apply(batched, feats, mspec)
         w = _window(z)
         return torch.sum(u_all * w, dim=0) / (torch.sum(w, dim=0) + 1e-12)
@@ -187,7 +193,9 @@ def run_patched(
     Random streams: the P inits, the Adam phase's draws and the L-BFGS
     draw are streams 0, 1 and 2 of ``spec.seed``, as a run_system's.
     ``resume=True`` with ``output_dir``: a finished run's
-    params_stage_1.npz is reloaded and nothing is trained.
+    params_stage_1.npz is reloaded and nothing is trained; else, with
+    ``checkpoint_every > 0``, a killed run's adam_state_stage_1.npz
+    continues its Adam phase.
     """
     _check_supported(spec, mesh)
     if not spec.stages:
@@ -208,6 +216,9 @@ def run_patched(
     if problem.hard_bc is not None:
         raise ValueError("run_patched poses BCs softly; hard_bc is the "
                          "single-net path (net.wrap_hard_bc)")
+    if spec.lbfgs_device is not None:
+        raise ValueError("run_patched runs L-BFGS on the training device: "
+                         "lbfgs_device must be None")
     dropped = [k for k in ("lsq_polish", "deflation")
                if getattr(spec, k, "off") != "off"]
     if spec.ring_weight > 0:
@@ -282,7 +293,26 @@ def run_patched(
 
         phase = optim.make_adam_phase(loss_fn, sample_fn, density_fn,
                                       adam_cfg, info_width, adam_log)
-        res = phase(gen_adam, params, data0, F0, lw, ref)
+        adam_ckpt = out / "adam_state_stage_1.npz" if out else None
+        init_phase = None
+        if resume and adam_ckpt is not None and adam_ckpt.exists():
+            try:
+                init_phase = _load_phase(adam_ckpt, phase, adam_cfg.layout,
+                                         st.adam_epochs, gen_adam, params,
+                                         data0, F0, ref)
+                log(f"patched: resuming Adam mid-run at step "
+                    f"{init_phase[0]}/{st.adam_epochs}")
+            except _UNUSABLE as e:
+                init_phase = None
+                log(f"patched: mid-run checkpoint unusable ({e}); "
+                    "restarting the Adam phase")
+        ckpt_cb = None
+        if adam_ckpt is not None and spec.checkpoint_every > 0:
+            ckpt_cb = _phase_saver(adam_ckpt, spec.checkpoint_every,
+                                   st.adam_epochs, adam_cfg.layout,
+                                   init_phase[0] if init_phase else 0)
+        res = phase(gen_adam, params, data0, F0, lw, ref, ckpt_cb=ckpt_cb,
+                    init=init_phase)
         params = res.params
         hist_adam = res.history[:res.n_valid].cpu().numpy()
         if res.n_valid:

@@ -25,7 +25,10 @@ Unknown coefficients compose: with an ``inverse`` (core.inverse.
 InverseSpec) the equations may declare coefficients, identified jointly
 with the net from full-state observations (``observations``, or drawn
 from ``problem.exact``).  ``mesh`` (ROADMAP.md Queue A item 14) is not
-ported and raises NotImplementedError.
+ported and raises NotImplementedError.  tpinn's run_system writes no
+mid-stage Adam checkpoint and ignores ``checkpoint_every`` and
+``lbfgs_device``; here ``checkpoint_every > 0`` and a ``lbfgs_device``
+raise ValueError.
 """
 
 from __future__ import annotations
@@ -194,6 +197,12 @@ def run_system(
     ``system.json``.
     """
     _check_supported(spec, mesh)
+    if spec.checkpoint_every > 0:
+        raise ValueError("run_system writes no mid-stage Adam checkpoint: "
+                         "checkpoint_every must be 0")
+    if spec.lbfgs_device is not None:
+        raise ValueError("run_system runs L-BFGS on the training device: "
+                         "lbfgs_device must be None")
     if not spec.stages:
         spec = spec.with_default_stages()
     st = spec.stages[0]

@@ -34,11 +34,22 @@ to), "default" allows TF32.  It reaches the dense products autograd sees
 kernels B1 and B2 compute in fp32 FMA whatever it says.  L-BFGS, the
 float64 evaluation and all of polish.py never see TF32.
 
+Mid-stage checkpoints: with ``checkpoint_every > 0`` and an
+``output_dir`` the Adam phase's whole state goes to
+``adam_state_stage_N.npz`` (utils.checkpoint.save_phase_state) at the end
+of a log chunk once ``checkpoint_every`` steps have passed since the last
+save, and at the end of the main loop; ``resume=True`` continues a stage
+from it, bit for bit where the uninterrupted run would be (a finished
+stage's ``params_stage_N.npz`` still wins).  ``lbfgs_device="cpu"`` runs
+every L-BFGS round on the host CPU: the round's density draw stays on the
+training device, the stage's loss is rebuilt on the CPU, and the
+parameters come back.
+
 Not ported yet, and refused with NotImplementedError before any work:
-``mesh`` (ROADMAP.md Queue A item 14), ``checkpoint_every > 0`` and
-mid-stage resume (item 9), ``lbfgs_device``.  ``cpu_fallback=True`` raises
+``mesh`` (ROADMAP.md Queue A item 14).  ``cpu_fallback=True`` raises
 ValueError: the port never retries a phase elsewhere, so
-``TrainResult.fell_back`` is always False.
+``TrainResult.fell_back`` is always False; ``lbfgs_device`` takes None
+and "cpu" only (tpinn ignores other values).
 
 ``run_pinn_training`` is the online calculator's entry: the reference's
 kwarg schema (a typed equation, boundary groups, a 2-D box) turned into a
@@ -56,6 +67,7 @@ import math
 import sys
 import threading
 import time
+import zipfile
 from dataclasses import dataclass, replace
 from pathlib import Path
 from typing import Callable, List, Optional, Sequence, Tuple, Union
@@ -273,6 +285,54 @@ def _cast_tree(tree, dtype):
         for x in optim.tree_leaves(tree)))
 
 
+def _to_device(tree, device):
+    """``tree`` with every tensor leaf on ``device`` (the same tensors
+    where they are there already); other leaves as they are."""
+    return optim._rebuild(tree, iter(
+        x.to(device) if torch.is_tensor(x) else x
+        for x in optim.tree_leaves(tree)))
+
+
+def _raw_chain(mspecs, feature_map, lb, ub):
+    """The raw predictor of a stage chain (make_predictor, then one
+    compose_stages per later stage) on ``lb``'s and ``ub``'s device."""
+    pred = net.make_predictor(mspecs[0], feature_map, lb, ub)
+    for mspec in mspecs[1:]:
+        pred = net.compose_stages(pred, mspec, feature_map, lb, ub)
+    return pred
+
+
+# what makes a mid-stage checkpoint unusable: the phase restarts
+_UNUSABLE = (KeyError, ValueError, OSError, EOFError, zipfile.BadZipFile)
+
+
+def _load_phase(path, phase, layout, epochs, gen, params, data, F, ref):
+    """``(done, state, hist)`` of the phase file ``path`` for ``phase``
+    (its make_state0 the template); raises one of ``_UNUSABLE`` where the
+    file cannot continue this phase."""
+    like = phase.make_state0(gen, params, data, F, ref)
+    init = ckpt.load_phase_state(path, like, layout)
+    if init[0] > epochs:
+        raise ValueError(f"saved at step {init[0]}, past this phase's "
+                         f"{epochs}")
+    return init
+
+
+def _phase_saver(path, every, epochs, layout, done0):
+    """The Adam phase's ``ckpt_cb``: the state goes to ``path`` once
+    ``every`` steps have passed since the last save (``done0`` at the
+    start), and at the end of the main loop."""
+    last = done0
+
+    def ckpt_cb(done, state, hist):
+        nonlocal last
+        if done - last >= every or done >= epochs:
+            ckpt.save_phase_state(path, done, state, hist, layout)
+            last = done
+
+    return ckpt_cb
+
+
 def eval_stage_f64(predictor, params, X_star, compiled, source_fn, exact):
     """u, the residual (and the analytic oracle) in float64, on X_star's
     device, through the generic engine (``fast_partials`` sends float64
@@ -386,10 +446,9 @@ def _check_supported(spec: TrainSpec, mesh) -> None:
         raise ValueError(
             f"adam_precision={spec.adam_precision!r}: expected None, "
             f"'highest', 'high' or 'default'")
-    if spec.checkpoint_every > 0:
-        later("checkpoint_every > 0 (mid-stage Adam checkpoints)", 9)
-    if spec.lbfgs_device is not None:
-        later(f"lbfgs_device={spec.lbfgs_device!r}", 9)
+    if spec.lbfgs_device not in (None, "cpu"):
+        raise ValueError(f"lbfgs_device={spec.lbfgs_device!r}: expected "
+                         f"None (the training device) or 'cpu'")
     if spec.dtype not in _DTYPES:
         raise ValueError(f"dtype must be one of {sorted(_DTYPES)}")
 
@@ -415,7 +474,9 @@ def run_training(
     card).  Writes the 11-artifact contract and ``params_stage_N.npz``
     (the JAX package's checkpoint format and meta) into ``output_dir``
     when given; ``resume=True`` reloads a finished stage's checkpoint and
-    skips its training."""
+    skips its training, or continues an unfinished stage's Adam phase from
+    its ``adam_state_stage_N.npz`` (written with ``checkpoint_every >
+    0``)."""
     _check_supported(spec, mesh)
     if not spec.stages:
         spec = spec.with_default_stages()
@@ -470,6 +531,7 @@ def run_training(
     lw = torch.tensor(spec.lw, dtype=dtype, device=dev)
 
     prev_predictor: Optional[Callable] = None
+    prev_specs: List[net.MLPSpec] = []  # the raw chain of prev_predictor
     prev_params = None
     prev_diag: Optional[Tuple[float, Optional[float]]] = None
     stage_results: List[StageResult] = []
@@ -547,9 +609,11 @@ def run_training(
             chain_specs.append(net.spec_to_dict(mspec))
         if prev_predictor is None or warm:
             raw_predictor = net.make_predictor(mspec, feature_map, lb, ub)
+            raw_specs = [mspec]
         else:
             raw_predictor = net.compose_stages(prev_predictor, mspec,
                                                feature_map, lb, ub)
+            raw_specs = prev_specs + [mspec]
             params = net.compose_params(params, prev_params)
         # the hard-BC ansatz wraps the WHOLE raw chain
         predictor = (net.wrap_hard_bc(raw_predictor, *hard_fns)
@@ -603,7 +667,7 @@ def run_training(
                 f"{spec.causal_axis!r} ({spec.causal_bins} slabs, "
                 f"eps {spec.causal_eps:g}, Adam phase)")
 
-        def build_loss(pred, engine, causal=None):
+        def build_loss(pred, engine, causal=None, ring=ring_arg):
             # the kernels serve plain dense (optionally hard-BC wrapped)
             # predictors without deriv_loss: decided by structure, before
             # any kernel runs
@@ -617,7 +681,7 @@ def run_training(
                                       deriv_loss=spec.deriv_loss,
                                       engine=engine,
                                       residual_weight_fn=rw_fn,
-                                      bc_operators=bc_ops, ring=ring_arg,
+                                      bc_operators=bc_ops, ring=ring,
                                       causal=causal)
 
         loss_fn = build_loss(predictor, spec.engine)
@@ -685,8 +749,48 @@ def run_training(
 
             phase = optim.make_adam_phase(loss_fn_adam, sample_fn, density_fn,
                                           adam_cfg, info_width, adam_log)
+
+            # --- mid-stage checkpoint / resume (log-chunk granularity)
+            adam_ckpt = (out / f"adam_state_stage_{stage_no}.npz"
+                         if out else None)
+            init_phase = None
+            if resume and adam_ckpt is not None and adam_ckpt.exists():
+                def load_state(ph, layout):
+                    return _load_phase(adam_ckpt, ph, layout, st.adam_epochs,
+                                       gen_adam, params, data0, F0, ref)
+
+                try:
+                    init_phase = load_state(phase, spec.adam_layout)
+                    log(f"stage {stage_no}: resuming Adam mid-stage at step "
+                        f"{init_phase[0]}/{st.adam_epochs}")
+                except _UNUSABLE as e:
+                    # a file written under the other adam_layout finishes
+                    # THIS stage under its own layout (same math)
+                    other = "tree" if spec.adam_layout == "flat" else "flat"
+                    cfg_other = replace(adam_cfg, layout=other)
+                    phase_other = optim.make_adam_phase(
+                        loss_fn_adam, sample_fn, density_fn, cfg_other,
+                        info_width, adam_log)
+                    try:
+                        init_phase = load_state(phase_other, other)
+                    except _UNUSABLE:
+                        log(f"stage {stage_no}: mid-stage checkpoint "
+                            f"unusable ({e}); restarting the Adam phase")
+                    else:
+                        phase, adam_cfg = phase_other, cfg_other
+                        log(f"stage {stage_no}: checkpoint predates the "
+                            f"'{spec.adam_layout}' Adam layout — resuming "
+                            f"this stage under layout='{other}' at step "
+                            f"{init_phase[0]}/{st.adam_epochs}")
+            ckpt_cb = None
+            if adam_ckpt is not None and spec.checkpoint_every > 0:
+                ckpt_cb = _phase_saver(adam_ckpt, spec.checkpoint_every,
+                                       st.adam_epochs, adam_cfg.layout,
+                                       init_phase[0] if init_phase else 0)
+
             with adam_matmul_precision(spec.adam_precision):
-                res = phase(gen_adam, params, data0, F0, stage_lw, ref)
+                res = phase(gen_adam, params, data0, F0, stage_lw, ref,
+                            ckpt_cb=ckpt_cb, init=init_phase)
             params = res.params
             n_adam = res.n_valid
             hist_adam = res.history[:n_adam].cpu().numpy()
@@ -727,6 +831,22 @@ def run_training(
             else:
                 sample_fn_l = sample_fn
 
+            # lbfgs_device="cpu": the rounds run on the host CPU on the
+            # stage's loss rebuilt there (its chain and constants on the
+            # CPU; on a CPU run the same loss, built anew); the density
+            # draws stay on the training device
+            where, loss_l = dev, loss_fn
+            if spec.lbfgs_device == "cpu":
+                where = torch.device("cpu")
+                lb_c, ub_c = lb.to(where), ub.to(where)
+                pred_c = _raw_chain(raw_specs, feature_map, lb_c, ub_c)
+                if hard_fns is not None:
+                    pred_c = net.wrap_hard_bc(pred_c, *hard_fns)
+                loss_l = build_loss(pred_c, spec.engine, ring=None if (
+                    ring_arg is None) else _to_device(ring_arg, where))
+                log(f"stage {stage_no}: L-BFGS on the host CPU "
+                    f"(lbfgs_device='cpu')")
+
             hist_parts = []
             for ri in range(rounds):
                 if grid_fixed is not None:
@@ -739,8 +859,11 @@ def run_training(
                     params = _cast_tree(params, lbfgs_dtype)
                     data_lbfgs = _cast_tree(data_lbfgs, lbfgs_dtype)
                 params, hist_full, n_rows = optim.lbfgs_over_pytree(
-                    loss_fn, params, data_lbfgs, stage_lw.to(lbfgs_dtype),
-                    ref.to(lbfgs_dtype), lbfgs_cfg)
+                    loss_l, _to_device(params, where),
+                    _to_device(data_lbfgs, where),
+                    stage_lw.to(where, lbfgs_dtype),
+                    ref.to(where, lbfgs_dtype), lbfgs_cfg)
+                params = _to_device(params, dev)
                 if lbfgs_dtype != dtype:
                     # back to the training dtype for later stages
                     params = _cast_tree(params, dtype)
@@ -844,6 +967,7 @@ def run_training(
             r_rms=r_rms, e_rms=e_rms, U=U, F=F, scl=float(scl),
             epsil=float(epsil)))
         prev_predictor = raw_predictor  # composition extends the raw chain
+        prev_specs = raw_specs
         prev_params = params
         prev_diag = (r_rms, e_rms)
 
