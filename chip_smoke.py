@@ -256,6 +256,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
    device-busy share from the trace's kernel, copy and set events; the
    StepTimer median (CUDA events) over 20 steps beside the host-clock
    median.  Outputs in build/smoke/resume/.
+5k. The mesh and the Dash frontend (the parallel and Dash slice's paths):
+   a. the flagship at 5j's cut with one L-BFGS round of 3 iterates on
+   450^2, the solves and the correction off (mesh_spec), through
+   run_training with mesh=make_mesh() on one NCCL rank and without a mesh:
+   history and params digests equal bit for bit, B1 and B2 at least once
+   per Adam step, B3 once, through the launcher.  b. The same on a (1, 2)
+   mesh of two gloo ranks on the one card (this script's --mesh-rank
+   entry in two processes; 23,000 points a rank): gloo's all_reduce and
+   all_gather on CUDA tensors, the step-0 loss and every gradient leaf
+   within MESH_RTOL of (a)'s, equal digests on both ranks, rank 0 alone
+   writing files, rel-L2 finite and within 2x of (a)'s, the time per
+   Adam step beside (a)'s.  c. tpinn's 4-patch case on a (2, 1) mesh in
+   the same processes: the step-0 gradient within 1e-5 (relative norm) of
+   one process's on the card, then MESH_PATCH_CUT through run_patched
+   (patches split over the ensemble axis), equal digests.  d. The Dash
+   frontend on the card through tests/dash_double.py: create_app(device=
+   "cuda"), the layout's default request cut to DASH_CUT started and
+   polled through its callbacks to done (the gated inputs disabled while
+   it runs), B1/B2 at least once per Adam step and B3 once, the 11 tabs
+   built.  Outputs in build/smoke/mesh/ and build/smoke/dash/.
 6. Timing (medians of synchronised runs): B1 inside the residual at the
    serving shapes; B1 alone against its plain version at the served
    262,144 points, the recipe's batch and L-BFGS grid (46,000, 202,500)
@@ -301,6 +321,7 @@ of the smoke):
     python3 chip_smoke.py --patch-recipe       # tpinn's FBPINN case as written
     python3 chip_smoke.py --calculator-only    # phase 5i, kernels built in it
     python3 chip_smoke.py --resume-only        # phase 2, 3c's resumed B3, 5j
+    python3 chip_smoke.py --mesh-only          # phases 2 and 5k
     python3 chip_smoke.py --determinism [DIR]  # warned ops of 5c's training
 
 The compares time the kernel at phase 6's shapes in DIR (say a git
@@ -333,10 +354,11 @@ fails unless |lam - 1| < 1e-2 (the bar of tests/test_inverse.py).
 tests/test_patch.py).
 
 The line before the last is a JSON object describing the kernels (each
-with its launches on the six newest main paths, phase 5e's three
+with its launches on the seven newest main paths, phase 5e's three
 marching recipes, phase 5f's coupled systems, phase 5g's inverse runs,
-phase 5h's ensemble members and patched run, phase 5i's demo session
-and phase 5j's resumed run together, and on every path by name, its time, its plain version's, the card's bound for the
+phase 5h's ensemble members and patched run, phase 5i's demo session,
+phase 5j's resumed run and phase 5k's meshed runs (rank 0's of the gloo
+ranks) and Dash session together, and on every path by name, its time, its plain version's, the card's bound for the
 same work and, where one PyTorch call computes the same function, that
 call's time; B1 and B2 with every timed shape and its plan under
 "shapes", B1's times around the call, with its device and host times
@@ -512,6 +534,11 @@ RESUME_CADENCE = dict(tail_max=20, resample_every=30, density_every=40,
 RESUME_LBFGS_RTOL = 1e-5   # L-BFGS row 0 on the CPU vs on the card
 PROFILE_STEPS = 10         # flagship Adam steps in the profiler's trace
 TIMER_STEPS = 20           # flagship Adam steps timed by StepTimer
+# phase 5k: the mesh and the Dash frontend
+MESH_RTOL = 1e-5    # (b)'s step-0 loss and gradient leaves against (a)'s
+MESH_TIMEOUT = 300  # seconds the two gloo ranks may take
+MESH_PATCH_CUT = (100, 30)  # the 4-patch case's adam / lbfgs epochs
+DASH_CUT = (50, 30)  # the Dash session's adam / lbfgs (phase 5i's pair cut)
 QUEUED = 100        # back-to-back launches timed behind a long kernel
 # B3 past one grid of 132 SMs x 4 blocks x 256 threads: its threads loop
 LOOP_N = 140_001
@@ -4321,6 +4348,544 @@ def resume_only() -> None:
     print(f"  launches of the resumed run: {launches}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 5k: the mesh (tpinn_torch.parallel) and the Dash frontend
+# ---------------------------------------------------------------------------
+
+
+def mesh_spec():
+    """The flagship recipe at phase 5j's cut with one L-BFGS round of three
+    iterates on its 450^2 grid, the last-layer solves and the correction
+    off."""
+    import dataclasses
+
+    problem, spec = resume_spec(lbfgs_rounds=1)
+    return problem, dataclasses.replace(spec, lsq_polish="off",
+                                        deflation="off")
+
+
+def mesh_patch_case():
+    """tpinn's patch-parallel case (tests/test_patch.py): sin(4 pi x) on 4
+    overlapping patches of 2x8, 64 collocation points and 8 per BC group a
+    step: the problem, its TrainSpec at MESH_PATCH_CUT, the PatchSpec, and
+    numpy-seeded stacked weights and points for the step-0 gradient."""
+    import numpy as np
+    import torch
+
+    from tpinn_torch.core import sample
+    from tpinn_torch.core.patch import PatchSpec
+    from tpinn_torch.core.train import ProblemSpec, StageSpec, TrainSpec
+
+    w = 4 * math.pi
+    prob = ProblemSpec(
+        name="hf_poisson", equation=f"u_xx + {w * w}*sin({w}*x)",
+        coords=("x",), lb=(0.0,), ub=(1.0,),
+        bc_groups=(sample.BCGroup(lo=(0.0,), hi=(0.0,), value=0.0),
+                   sample.BCGroup(lo=(1.0,), hi=(1.0,), value=0.0)),
+        exact=lambda z: torch.sin(w * z))
+    adam, lbfgs = MESH_PATCH_CUT
+    spec = TrainSpec(
+        n_col=64, n_band=0, n_adaptive=0, n_bd=8, testing_size=(64,),
+        lw=(1e-4, 0.0), grid=17, log_every=100, density_every=10 ** 9,
+        plateau_every=10 ** 9, stages=(StageSpec(
+            depth=2, width=8, scl=1.0, epsil=1.0, adam_epochs=adam,
+            lbfgs_epochs=lbfgs),))
+    rng = np.random.default_rng(5)
+    sizes = [1, 8, 8, 1]
+    layers = []
+    for a, b in zip(sizes[:-1], sizes[1:]):
+        layers.append({
+            "w": (rng.standard_normal((4, a, b)) * math.sqrt(2.0 / (a + b))
+                  ).astype(np.float32),
+            "b": (0.1 * rng.standard_normal((4, b))).astype(np.float32)})
+    data = {"x_col": rng.uniform(0, 1, (64, 1)).astype(np.float32),
+            "x_bd": [np.full((8, 1), v, np.float32) for v in (0.0, 1.0)],
+            "u_bd": [np.zeros((8, 1), np.float32)] * 2}
+    return prob, spec, PatchSpec(n=(4,), overlap=0.5), {"layers": layers}, data
+
+
+def mesh_patch_grad(prob, params_np, data_np, dev, mesh=None):
+    """The step-0 gradient of the patch case's loss (lw (1e-4, 0), ref 1)
+    on ``dev``: one process, or patch-parallel on ``mesh`` (each ensemble
+    group its patches, the gradient reduced); a flat numpy vector."""
+    import torch
+
+    from tpinn_torch import parallel
+    from tpinn_torch.core import loss as loss_mod
+    from tpinn_torch.core import net, optim, pde
+    from tpinn_torch.core.patch import (PatchSpec, make_patch_predictor,
+                                        shard_patches)
+    from tpinn_torch.utils.convert import params_from_numpy
+
+    pred = make_patch_predictor(net.MLPSpec(depth=2, width=8),
+                                PatchSpec(n=(4,), overlap=0.5), prob.lb,
+                                prob.ub, device=dev)
+    compiled = pde.compile_pde(prob.equation, prob.coords)
+    if mesh is None:
+        loss_fn = loss_mod.make_loss(pred, compiled)
+    else:
+        loss_fn = parallel.make_parallel_loss(loss_mod.make_loss(
+            shard_patches(pred, 4, mesh), compiled, engine="fused"), mesh,
+            sum_ensemble=True)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    data = {"x_col": t(data_np["x_col"]),
+            "x_bd": [t(a) for a in data_np["x_bd"]],
+            "u_bd": [t(a) for a in data_np["u_bd"]]}
+    if mesh is not None:
+        data = parallel.shard_data(data, mesh)
+    flat, unravel = optim.ravel_tree(params_from_numpy(params_np, dev))
+    x = flat.requires_grad_(True)
+    loss_n, info = loss_fn(unravel(x), data, t([1e-4, 0.0]), t(1.0))
+    (g,) = torch.autograd.grad(loss_n, x)
+    if mesh is not None:
+        _, _, (g,) = loss_fn.tpinn_reduce(loss_n, info, [g])
+    return g.detach().cpu().numpy()
+
+
+@contextlib.contextmanager
+def mesh_probes():
+    """Records, inside: the first step's reduced gradient (Mesh.reduce_step
+    with gradient leaves; ``ref``'s reduction has none), the Adam phases'
+    wall time and steps, and every npz the run writes."""
+    import torch
+
+    from tpinn_torch.core import optim
+    from tpinn_torch.parallel import mesh as pmesh
+    from tpinn_torch.utils import artifacts, checkpoint
+
+    rec = {"first": None, "phases": [], "writes": 0}
+    inner_reduce = pmesh.Mesh.reduce_step
+    inner_phase = optim.make_adam_phase
+    inner_save = checkpoint.atomic_savez
+
+    def reduce_step(self, loss_n, info, grads, sum_ensemble=False):
+        out = inner_reduce(self, loss_n, info, grads, sum_ensemble)
+        if grads and rec["first"] is None:
+            rec["first"] = (float(out[0]), out[1].cpu().numpy(),
+                            [g.detach().cpu().clone() for g in out[2]])
+        return out
+
+    def make_adam_phase(*args, **kwargs):
+        phase = inner_phase(*args, **kwargs)
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = phase(*a, **k)
+            torch.cuda.synchronize()
+            rec["phases"].append((time.perf_counter() - t0, res.n_valid))
+            return res
+
+        timed.make_state0 = phase.make_state0
+        return timed
+
+    def save(*a, **k):
+        rec["writes"] += 1
+        return inner_save(*a, **k)
+
+    pmesh.Mesh.reduce_step = reduce_step
+    optim.make_adam_phase = make_adam_phase
+    checkpoint.atomic_savez = artifacts.atomic_savez = save
+    try:
+        yield rec
+    finally:
+        pmesh.Mesh.reduce_step = inner_reduce
+        optim.make_adam_phase = inner_phase
+        checkpoint.atomic_savez = artifacts.atomic_savez = inner_save
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def mesh_rank(rank: int, world: int, port: int, out: str) -> None:
+    """One gloo rank of phase 5k (b) and (c), on the one card: the flagship
+    on a (1, world) mesh, then the patch case's step-0 gradient and run on
+    a (world, 1) mesh.  Saves OUT/rank<RANK>.npz, prints one JSON line."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from tpinn_torch import parallel
+    from tpinn_torch.core import train
+    from tpinn_torch.core.patch import run_patched
+    from tpinn_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    _build.load_all(KERNELS)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    out = Path(out)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    summary, arrays = {"rank": rank}, {}
+    try:
+        # gloo on CUDA tensors: all_reduce and all_gather in place
+        x = torch.full((3,), float(rank + 1), device=dev)
+        dist.all_reduce(x)
+        parts = [torch.empty(2, device=dev) for _ in range(world)]
+        dist.all_gather(parts, torch.full((2,), float(rank), device=dev))
+        summary["gloo_cuda"] = (x.device.type, float(x[0]),
+                                [float(p[0]) for p in parts])
+
+        problem, spec = mesh_spec()
+        mesh = parallel.make_mesh()
+        lines = []
+        reset_launches()
+        with mesh_probes() as rec, adam_launchers() as built:
+            res = train.run_training(problem, spec, output_dir=str(out / "b"),
+                                     mesh=mesh, log_fn=lines.append,
+                                     device=dev)
+        torch.cuda.synchronize()
+        loss0, info0, grads0 = rec["first"]
+        arrays.update({f"b/grad{k}": g.numpy() for k, g in enumerate(grads0)})
+        arrays["b/info0"] = info0
+        summary["b"] = {
+            "loss0": loss0, "launches": read_launches(),
+            "n_adam": adam_steps_logged(lines),
+            "launchers": [x.t - 1 for x in built],
+            "history": history_digest(res.history),
+            "params": params_digest(res.stages[0].params),
+            "rel_l2": res.rel_l2, "writes": rec["writes"],
+            "adam_s": rec["phases"][0][0], "adam_steps": rec["phases"][0][1]}
+
+        prob, pspec_t, pspec, p_np, d_np = mesh_patch_case()
+        mesh2 = parallel.make_mesh(ensemble=world)
+        arrays["c/grad0"] = mesh_patch_grad(prob, p_np, d_np, dev, mesh2)
+        lines = []
+        reset_launches()
+        with mesh_probes() as rec:
+            r = run_patched(prob, pspec_t, pspec, output_dir=str(out / "c"),
+                            mesh=mesh2, log_fn=lines.append, device=dev)
+        summary["c"] = {
+            "launches": read_launches(), "n_adam": adam_steps_logged(lines),
+            "history": history_digest(r.history),
+            "params": history_digest(np.concatenate(
+                [x.detach().cpu().numpy().ravel()
+                 for x in leaves_of(r.params)])),
+            "rows": int(r.history.shape[0]), "rel_l2": r.rel_l2,
+            "writes": rec["writes"],
+            "sharded": any("ensemble-axis groups" in ln for ln in lines)}
+    finally:
+        dist.destroy_process_group()
+    np.savez(out / f"rank{rank}.npz", **arrays)
+    print(json.dumps(summary))
+
+
+def launch_mesh_ranks(world: int, out: Path) -> list:
+    """Phase 5k (b) and (c): ``world`` gloo ranks of this script (the
+    --mesh-rank entry) on the one card; a (summary, arrays) per rank."""
+    import numpy as np
+
+    port = free_port()
+    out.mkdir(parents=True, exist_ok=True)
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank", str(r),
+         str(world), str(port), str(out)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=str(ROOT))
+        for r in range(world)]
+    results = []
+    try:
+        for r, p in enumerate(procs):
+            o, e = p.communicate(timeout=MESH_TIMEOUT)
+            check(p.returncode == 0, f"5k: gloo rank {r} exited "
+                                     f"{p.returncode}:\n{e[-4000:]}")
+            with np.load(out / f"rank{r}.npz") as z:
+                arrays = {k: z[k] for k in z.files}
+            results.append((json.loads(o.strip().splitlines()[-1]), arrays))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return results
+
+
+def phase_mesh(dev, card):
+    """Phase 5k: (a) the flagship (mesh_spec: 6x80 hard BC, 46,000 points a
+    step, MESH_ADAM Adam steps, one L-BFGS round of 3 iterates on 450^2)
+    through run_training with mesh=make_mesh() on one NCCL rank and without
+    a mesh: history and params digests equal bit for bit, B1/B2 at least
+    once per Adam step and B3 once, through the launcher.  (b) The same on
+    a (1, 2) mesh of two gloo ranks on the card (23,000 points each):
+    gloo on CUDA tensors, the step-0 loss and every gradient leaf within
+    MESH_RTOL of (a)'s, both ranks' digests equal, rank 0 alone writes,
+    rel-L2 finite and within 2x of (a)'s, the time per Adam step beside
+    (a)'s.  (c) tpinn's 4-patch case on a (2, 1) mesh: the step-0
+    gradient within 1e-5 (relative norm) of one process's on the card,
+    then MESH_PATCH_CUT through run_patched with equal digests.  (d) The
+    Dash frontend on the card (phase_dash).  Returns the launches of (a)'s
+    meshed run, of (b)'s rank 0, of (c)'s rank 0 and of (d)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tpinn_torch import parallel
+    from tpinn_torch.core import optim, train
+
+    t_phase = time.perf_counter()
+    root = SMOKE_DIR / "mesh"
+    shutil.rmtree(root, ignore_errors=True)
+    problem, spec = mesh_spec()
+
+    # (a) one NCCL rank against no mesh
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    runs = {}
+    try:
+        mesh = parallel.make_mesh()
+        for name, kw in (("plain", {}), ("meshed", {"mesh": mesh})):
+            lines = []
+            reset_launches()
+            with mesh_probes() as rec, adam_launchers() as built:
+                res = train.run_training(problem, spec,
+                                         output_dir=str(root / name),
+                                         log_fn=lines.append, device=dev,
+                                         **kw)
+            torch.cuda.synchronize()
+            runs[name] = (res, read_launches(), adam_steps_logged(lines),
+                          built, rec)
+    finally:
+        dist.destroy_process_group()
+    (res0, _, n0, _, rec0), (res1, launches, n_adam, built, rec1) = (
+        runs["plain"], runs["meshed"])
+    digests = [(history_digest(r.history), params_digest(r.stages[0].params))
+               for r in (res0, res1)]
+    print(f"  (a) {mesh}: Adam steps {n_adam}, launches {launches}; history "
+          f"and params digests without a mesh {digests[0]}, with "
+          f"{digests[1]}; rel-L2 {res0.rel_l2:.6e} / {res1.rel_l2:.6e}")
+    check(digests[0] == digests[1] and n0 == n_adam,
+          "5k (a): the one-rank meshed run parts from the unmeshed one")
+    for k in ("taylor2_fwd", "taylor2_bwd"):
+        check(launches[k] >= sum(n_adam),
+              f"5k (a): {k} launched {launches[k]} times for {sum(n_adam)} "
+              f"Adam steps")
+    check_adam_route("5k (a)", built, launches["adam"], n_adam)
+    check(rec1["writes"] == rec0["writes"] > 0,
+          f"5k (a): {rec1['writes']} files written meshed, "
+          f"{rec0['writes']} without")
+    step_a = rec1["phases"][0][0] / rec1["phases"][0][1] * 1e3
+    _, info_a, grads_a = rec1["first"]
+
+    # (b) and (c): two gloo ranks on the one card
+    ranks = launch_mesh_ranks(2, root / "gloo")
+    (s0, a0), (s1, a1) = ranks
+    print(f"  gloo on CUDA tensors: all_reduce and all_gather on "
+          f"{s0['gloo_cuda'][0]}, results {s0['gloo_cuda'][1:]}")
+    check(s0["gloo_cuda"] == ["cuda", 3.0, [0.0, 1.0]],
+          f"5k: gloo's collectives on CUDA tensors gave {s0['gloo_cuda']}")
+    b0, b1 = s0["b"], s1["b"]
+    # the Adam phase's one flat vector, cut into the net's leaves
+    sizes = [x.numel() for x in optim.tree_leaves(res1.stages[0].params)]
+    grads_b = torch.from_numpy(a0["b/grad0"]).split(sizes)
+    grads_a = grads_a[0].split(sizes)
+    # the loss itself (loss_n, the loss over its value at the start, is 1)
+    loss_a, loss_b = float(info_a[0]), float(a0["b/info0"][0])
+    rel_loss = abs(loss_b - loss_a) / abs(loss_a)
+    worst = 0.0
+    for k, (g, ref) in enumerate(zip(grads_b, grads_a)):
+        err = float((g - ref).abs().max())
+        scale = float(ref.abs().max())
+        worst = max(worst, err / scale)
+        check(err <= MESH_RTOL * scale, f"5k (b): gradient leaf {k}: max "
+                                        f"|diff| {err:.3e}, max |ref| "
+                                        f"{scale:.3e}")
+    check(rel_loss <= MESH_RTOL, f"5k (b): step-0 loss {loss_b} against "
+                                 f"{loss_a}")
+    check(all(np.array_equal(a0[k], a1[k]) for k in a0),
+          "5k (b): the ranks' reduced step-0 numbers differ")
+    check((b0["history"], b0["params"]) == (b1["history"], b1["params"]),
+          "5k (b): the ranks' digests differ")
+    check(b0["writes"] == rec1["writes"] and b1["writes"] == 0,
+          f"5k (b): files written by rank 0 {b0['writes']}, rank 1 "
+          f"{b1['writes']}")
+    check(b0["rel_l2"] is not None and math.isfinite(b0["rel_l2"])
+          and b0["rel_l2"] <= 2 * res1.rel_l2,
+          f"5k (b): rel-L2 {b0['rel_l2']} against (a)'s {res1.rel_l2}")
+    for k in ("taylor2_fwd", "taylor2_bwd"):
+        check(b0["launches"][k] >= sum(b0["n_adam"]),
+              f"5k (b): {k} launched {b0['launches'][k]} times")
+    check(b0["launches"]["adam"] == sum(b0["n_adam"])
+          == sum(b0["launchers"]), f"5k (b): adam {b0['launches']}, "
+                                   f"steps {b0['n_adam']}")
+    step_b = b0["adam_s"] / b0["adam_steps"] * 1e3
+    print(f"  (b) (1, 2) gloo mesh, 23,000 points a rank: step-0 loss "
+          f"relative difference {rel_loss:.3e}, worst gradient leaf "
+          f"{worst:.3e} of its max (bar {MESH_RTOL}); digests {b0['history']}"
+          f" / {b0['params']} on both ranks; files written: rank 0 "
+          f"{b0['writes']}, rank 1 {b1['writes']}; rel-L2 {b0['rel_l2']:.6e} "
+          f"(a: {res1.rel_l2:.6e}); launches on rank 0 {b0['launches']}")
+    print(f"  Adam step (flagship, 46,000 points): one NCCL rank {step_a:.3f} "
+          f"ms ({rec1['phases'][0][1]} steps), two gloo ranks on the one card "
+          f"{step_b:.3f} ms ({b0['adam_steps']} steps), {card}")
+
+    prob, _, _, p_np, d_np = mesh_patch_case()
+    g1 = mesh_patch_grad(prob, p_np, d_np, dev)
+    c0, c1 = s0["c"], s1["c"]
+    dev_c = float(np.linalg.norm(a0["c/grad0"] - g1) / np.linalg.norm(g1))
+    check(dev_c < 1e-5, f"5k (c): patch-parallel step-0 gradient off by "
+                        f"{dev_c:.3e} (relative norm)")
+    check(np.array_equal(a0["c/grad0"], a1["c/grad0"]),
+          "5k (c): the ranks' step-0 gradients differ")
+    check((c0["history"], c0["params"]) == (c1["history"], c1["params"])
+          and c0["sharded"] and c1["sharded"],
+          f"5k (c): digests {c0['history']}/{c0['params']} and "
+          f"{c1['history']}/{c1['params']}, sharded {c0['sharded']}")
+    check(c0["launches"]["adam"] == sum(c0["n_adam"]) > 0
+          and c1["writes"] == 0 < c0["writes"],
+          f"5k (c): launches {c0['launches']}, Adam steps {c0['n_adam']}, "
+          f"writes {c0['writes']} / {c1['writes']}")
+    print(f"  (c) 4 patches on a (2, 1) gloo mesh: step-0 gradient {dev_c:.3e}"
+          f" from one process's (relative norm, bar 1e-5); {c0['rows']} loss "
+          f"rows, digests {c0['history']} / {c0['params']} on both ranks; "
+          f"rel-L2 {c0['rel_l2']:.4e}; launches on rank 0 {c0['launches']}")
+
+    dash_launches = phase_dash(dev, card)
+    print(f"  phase 5k: {time.perf_counter() - t_phase:.1f} s on {card}")
+    return {"mesh": launches, "mesh_gloo": b0["launches"],
+            "mesh_patch": c0["launches"], "dash": dash_launches}
+
+
+class _Modules:
+    """What dash_double.install needs of pytest's monkeypatch, undone by
+    ``undo``."""
+
+    def __init__(self):
+        self.saved = []
+
+    def setitem(self, d, k, v):
+        self.saved.append((d, k, d.get(k)))
+        d[k] = v
+
+    def delitem(self, d, k, raising=True):
+        self.saved.append((d, k, d.get(k)))
+        d.pop(k, None)
+
+    def undo(self):
+        for d, k, v in reversed(self.saved):
+            if v is None:
+                d.pop(k, None)
+            else:
+                d[k] = v
+
+
+def phase_dash(dev, card):
+    """Phase 5k (d): tpinn_torch.app.dash_app on the card through the dash
+    double (tests/dash_double.py): create_app(device="cuda"), the layout's
+    default request (the demo's annulus BCs) with its budgets cut to
+    DASH_CUT, started through start_training and polled through
+    start_training and toggle_all to done (every gated input disabled while
+    it runs, enabled after); B1/B2 at least once per Adam step, B3 once,
+    through the launchers; then update_result_graph builds every one of
+    the 11 tabs from the session's artifacts.  Returns the launches."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import dash_double
+
+    mods = _Modules()
+    dash = dash_double.install(mods)
+    mods.delitem(sys.modules, "tpinn_torch.app.dash_app")
+    try:
+        from tpinn_torch.app import dash_app
+
+        root = SMOKE_DIR / "dash"
+        shutil.rmtree(root, ignore_errors=True)
+        app = dash_app.create_app(data_root=str(root), device=dev)
+        start = app.find("start_training")["fn"]
+        toggle = app.find("toggle_all")["fn"]
+        graph = app.find("update_result_graph")["fn"]
+        values = {c.id: c.props.get("value")
+                  for c in dash_double.walk(app.layout)
+                  if isinstance(c.id, str)}
+        fields = [values[f"input-{k}"] for k in dash_app.FIELD_KEYS]
+        fields[dash_app.FIELD_KEYS.index("adam")] = DASH_CUT[0]
+        fields[dash_app.FIELD_KEYS.index("lbfgs")] = DASH_CUT[1]
+        eq = values["input-equation"]
+        bd = [[0.1, 1.0], [0.1, 1.0], [0.0, 0.0], [1.0, 1.0], [1.0, 0.0]]
+        opts = (values["opt-lsq-polish"], values["opt-deflation"],
+                values["input-inverse-params"], values["opt-oracle"])
+        flat = lambda gates: [x for g in gates
+                              for x in (g if isinstance(g, list) else [g])]
+        reset_launches()
+        t0 = time.perf_counter()
+        polls = running = 0
+        with adam_launchers() as built:
+            dash.callback_context.triggered_id = "btn-start-training"
+            log = start(1, 0, "smoke", eq, *bd, *fields, *opts)
+            check(not log.startswith("ERROR"), f"5k (d): {log}")
+            dash.callback_context.triggered_id = "log-interval"
+            while True:
+                *gates, start_off = toggle(1, eq, "smoke", *bd, *fields,
+                                           opts[2])
+                log = start(1, 1, "smoke", eq, *bd, *fields, *opts)
+                polls += 1
+                if "training finished" in log or "TRAINING FAILED" in log:
+                    break
+                check(all(flat(gates)) or not any(flat(gates)),
+                      "5k (d): the gated inputs half disabled")
+                running += all(flat(gates)) and start_off
+                check(time.perf_counter() - t0 < CALC_TIMEOUT,
+                      f"5k (d): session not done: {log[-2000:]}")
+                time.sleep(0.5)
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        lines = log.splitlines()
+        check("training finished" in log, f"5k (d): {log[-3000:]}")
+        check(running > 0, "5k (d): no poll saw the inputs disabled")
+        *gates, start_off = toggle(1, eq, "smoke", *bd, *fields, opts[2])
+        check(not any(flat(gates)) and start_off is False,
+              "5k (d): inputs still disabled after the session")
+        n_adam = adam_steps_logged(lines)
+        check(len(n_adam) == 2, f"5k (d): Adam phases logged {n_adam}")
+        for k in ("taylor2_fwd", "taylor2_bwd"):
+            check(launches[k] >= sum(n_adam), f"5k (d): {k} launched "
+                                              f"{launches[k]} times")
+        check_adam_route("5k (d)", built, launches["adam"], n_adam)
+        tabs = ([("result-tabs-1", k, None) for k, _ in dash_app.TAB_ROW_1]
+                + [("result-tabs-2", None, k) for k, _ in dash_app.TAB_ROW_2])
+        for trig, t1, t2 in tabs:
+            dash.callback_context.triggered_id = trig
+            fig, subtitle, _, _ = graph(t1, t2, 0, "smoke")
+            check(bool(fig.data) and not fig.annotations,
+                  f"5k (d): tab {t1 or t2} ({subtitle}) has no figure")
+        print(f"  (d) Dash session on the card (the layout's defaults, "
+              f"budgets {DASH_CUT}): {seconds:.1f} s, {polls} polls ("
+              f"{running} with every input disabled), Adam steps {n_adam}, "
+              f"launches {launches}, all {len(tabs)} tabs built, {card}")
+    finally:
+        mods.undo()
+    return launches
+
+
+def mesh_only() -> None:
+    """Phases 1 and 2 and phase 5k alone."""
+    import torch
+
+    card = card_line()
+    print(f"  card: {card}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda", 0)
+    phase("2. build")
+    phase_build()
+    phase("5k. the mesh and the Dash frontend")
+    print(f"  launches: {phase_mesh(dev, card)}")
+
+
+
 def queued_ms(fn, blocker) -> float:
     """Device time per launch of ``fn`` in a queue of QUEUED launches: the
     host enqueues them while ``blocker`` (a long kernel) still runs, so the
@@ -5340,15 +5905,25 @@ def main() -> int:
     for k in KERNELS:
         check(resume_launches[k] > 0, f"{k} launched no time in the resumed "
               f"run")
-    # the kernels line's launches: the six newest main paths, marching
+
+    phase("5k. the mesh and the Dash frontend")
+    mesh_launches = phase_mesh(dev, card)
+    for k in KERNELS:
+        check(mesh_launches["mesh"][k] > 0 and mesh_launches["dash"][k] > 0,
+              f"{k} launched no time in the meshed run or the Dash session")
+    # the kernels line's launches: the seven newest main paths, marching
     # (B1, B2, B3), coupled systems (B3 only), scalar inverse (B1, B2, B3),
     # ensembles and patches (B1, B2, B3; B3 only), the calculator (B1, B2,
-    # B3) and the resumed flagship run (B1, B2, B3), each read on its own
+    # B3), the resumed flagship run (B1, B2, B3) and phase 5k (the meshed
+    # flagship on one NCCL rank and, rank 0's, on two gloo ranks: B1, B2,
+    # B3; the patch-parallel run, rank 0's: B3; the Dash session: B1, B2,
+    # B3), each read on its own
     launches = {k: sum(v[k] for v in (*march_launches.values(),
                                       *system_launches.values(),
                                       *inverse_launches.values(),
                                       *ep_launches.values(),
-                                      calc_launches, resume_launches))
+                                      calc_launches, resume_launches,
+                                      *mesh_launches.values()))
                 for k in KERNELS}
 
     phase("6. timing")
@@ -5436,13 +6011,15 @@ def main() -> int:
                                  **{k: v[src] for k, v in
                                     ep_launches.items()},
                                  "calculator": calc_launches[src],
-                                 "resume": resume_launches[src]}, **extra})
+                                 "resume": resume_launches[src],
+                                 **{k: v[src] for k, v in
+                                    mesh_launches.items()}}, **extra})
         k = kernels[-1]
         print(f"  {name}: {k['ms']:.4f} ms, bound {k['bound_ms']:.5f} ms by "
               f"{k['bound_by']} ({100 * k['bound_ms'] / k['ms']:.1f}% of the "
               f"time), launches on the marching, system, inverse, ensemble, "
-              f"patch, calculator and resume paths {launches[src]}, on "
-              f"{card}")
+              f"patch, calculator, resume, mesh and Dash paths "
+              f"{launches[src]}, on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5487,6 +6064,11 @@ if __name__ == "__main__":
         calculator_only()
     elif sys.argv[1:2] == ["--resume-only"]:
         resume_only()
+    elif sys.argv[1:2] == ["--mesh-only"]:
+        mesh_only()
+    elif sys.argv[1:2] == ["--mesh-rank"] and len(sys.argv) == 6:
+        mesh_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+                  sys.argv[5])
     elif sys.argv[1:2] == ["--determinism"] and len(sys.argv) <= 3:
         determinism(sys.argv[2] if len(sys.argv) == 3 else None)
     else:

@@ -226,13 +226,14 @@ def test_eigen_second_mode():
 
 
 def test_refusals(monkeypatch):
-    """mesh (item 14) and what run_training refuses raise before any work;
+    """a mesh that is not a tpinn_torch.parallel.Mesh (TypeError) and
+    what run_training refuses raise before any work;
     device 'cuda' without a card raises (no CPU fallback); no oracle and
     no observations is a ValueError."""
     prob = _poisson_inverse_problem()
     inv = InverseSpec(params=("lam",), init=(0.5,), n_obs=8)
     spec = _poisson_spec(16, 0, 1, 0, n_bd=4)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(TypeError, match="Mesh"):
         run_inverse(prob, inv, spec, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="cpu_fallback"):
         run_inverse(prob, inv, dataclasses.replace(spec, cpu_fallback=True),

@@ -11,7 +11,8 @@ stacked leaf rtol 1e-4, atol 1e-6; served /predict rtol 1e-5, atol 1e-6;
 the flat and tree Adam layouts rtol 1e-6, atol 1e-7.  Training runs
 use tpinn's own test sizes (tests/test_patch.py); the two packages'
 random streams differ, so runs are not compared across packages.  The
-mesh cases of tpinn's file wait for ROADMAP.md Queue A item 14.
+mesh cases of tpinn's file run in tests/test_torch_parallel.py (gloo
+ranks in subprocesses).
 """
 
 import contextlib
@@ -334,7 +335,8 @@ def test_finished_run_resumes_without_training(served_run, tmp_path):
 
 @pytest.mark.parametrize("what", ["checkpoint_every", "mesh", "cuda"])
 def test_refusals(what, monkeypatch, tmp_path):
-    """mesh and a missing card are refused; checkpoint_every, refused
+    """a mesh that is not a tpinn_torch.parallel.Mesh (TypeError) and a
+    missing card are refused; checkpoint_every, refused
     before mid-Adam checkpoints were ported, now runs and saves the phase
     (and lbfgs_device, which run_patched does not take, is refused)."""
     if what == "checkpoint_every":
@@ -352,8 +354,8 @@ def test_refusals(what, monkeypatch, tmp_path):
     kw = {"mesh": object()} if what == "mesh" else {}
     if what == "cuda":
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    err = RuntimeError if what == "cuda" else NotImplementedError
-    with pytest.raises(err, match="cuda" if what == "cuda" else "Queue A"):
+    err = RuntimeError if what == "cuda" else TypeError
+    with pytest.raises(err, match="cuda" if what == "cuda" else "Mesh"):
         run_patched(_hf_poisson(2 * PI), _serve_spec(), PatchSpec(n=(2,)),
                     device="cuda" if what == "cuda" else "cpu", **kw)
 

@@ -318,7 +318,7 @@ def test_device_and_mesh_refused(monkeypatch):
     prob = _osc_inverse()
     spec = _osc_spec(n_col=16, n_adaptive=0, n_bd=4, stages=(
         StageSpec(depth=1, width=4, adam_epochs=1, lbfgs_epochs=0),))
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(TypeError, match="Mesh"):
         run_system(prob, spec, mesh=object(), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):

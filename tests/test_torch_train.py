@@ -279,7 +279,8 @@ def test_train_refusals():
         with pytest.raises(exc):
             ttrain.run_training(problem, dataclasses.replace(base, **kw),
                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a mesh that is not a tpinn_torch.parallel.Mesh, before any work
+    with pytest.raises(TypeError, match="mesh"):
         ttrain.run_training(problem, base, mesh=object(), device="cpu")
     # lsq_polish='on' cannot serve a masked domain or operator BC groups
     masked = dataclasses.replace(problem, eval_mask=lambda z: z * 0 + 1)

@@ -17,7 +17,9 @@ The mean is a ``(predictor, params)`` pair, ``predictor(params_list, z) =
 Σ w_i f_i(p_i, z)`` over the members' own predictors and parameters, so
 the float64 passes (polish._residual_f64, defect_correction) cast the
 members' float32 weights instead of feeding float64 points to float32
-products.  ``output_dir/ensemble.json`` is served by app.serve.
+products.  ``output_dir/ensemble.json`` is served by app.serve.  A
+``mesh`` goes through to every member's run_training (each member
+points-parallel over it); rank 0 writes ``ensemble.json``.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from tpinn_torch import parallel
 from tpinn_torch.core import pde, polish
 from tpinn_torch.core.train import (ProblemSpec, TrainResult, TrainSpec,
                                     eval_grid, resolve_device, run_training)
@@ -201,7 +204,7 @@ def run_ensemble_training(
                    if exact is not None else ""))
 
     corr_list = np.round(corr, 6).tolist() if corr is not None else None
-    if out:
+    if out and parallel.is_writer(mesh):
         n_stages = len(spec.stages) if spec.stages else 2
         record = {
             "problem": problem.name,

@@ -27,13 +27,19 @@ after the BC groups.
 
 Deviations from tpinn: ``run_inverse`` takes a keyword-only ``device``,
 applies ``adam_precision`` as run_training does and refuses what
-train._check_supported refuses (``mesh``: ROADMAP.md Queue A item 14),
-and ``checkpoint_every > 0`` and a ``lbfgs_device`` (tpinn writes no
+train._check_supported refuses (a ``mesh`` that is not a
+tpinn_torch.parallel.Mesh), and ``checkpoint_every > 0`` and a
+``lbfgs_device`` (tpinn writes no
 mid-stage checkpoint here and ignores both) with ValueError;
 its random streams are ``spec.seed`` streams 0, 1 and 2 (net init, Adam
 draws, L-BFGS draw) as in run_system, where tpinn splits one PRNG key;
 it logs "inverse: Adam done (N steps), lam=…" where tpinn logs
 "inverse: after Adam lam=…".
+
+``mesh`` (tpinn_torch.parallel.make_mesh) shards the point batches over
+its points axis as run_system does; the observation term (and the eigen
+mode's normalization pin) is computed whole on every rank, and rank 0
+writes.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from tpinn_torch import parallel
 from tpinn_torch.core import loss as loss_mod
 from tpinn_torch.core import net, optim, pde, sample
 from tpinn_torch.core.train import (_DTYPES, ProblemSpec, TrainSpec,
@@ -273,9 +280,11 @@ def run_inverse(
         log(f"inverse: {len(inv.params)} coefficient(s) {inv.params}, "
             f"{z_obs.shape[0]} observations (noise {inv.obs_noise:g})")
 
+    _rc = parallel.counts_rounder(mesh)
     cfg = sample.SamplerConfig(
-        n_col=spec.n_col, n_band=spec.n_band, n_adaptive=spec.n_adaptive,
-        n_bd=spec.n_bd, grid=spec.grid)
+        n_col=_rc(spec.n_col), n_band=_rc(spec.n_band),
+        n_adaptive=_rc(spec.n_adaptive), n_bd=_rc(spec.n_bd),
+        grid=spec.grid)
     sample_fn, grids = sample.sampler_for(
         cfg, problem.bc_groups, problem.lb, problem.ub, dtype, dev)
     F0 = torch.ones_like(grids[0])
@@ -298,10 +307,12 @@ def run_inverse(
     lw = torch.tensor(spec.lw, dtype=dtype, device=dev)
     gen_adam = seeded(1, dev)
     gen_lbfgs = seeded(2, dev)
+    loss_fn, sample_fn = parallel.meshed(loss_fn, sample_fn, mesh)
     data0 = sample_fn(gen_adam, F0)
     with torch.no_grad():
-        ref = loss_fn(params, data0, lw,
-                      torch.ones((), dtype=dtype, device=dev))[1][0]
+        ref = optim.evaluate_loss(loss_fn, params, data0, lw,
+                                  torch.ones((), dtype=dtype,
+                                             device=dev))[1][0]
     log(f"inverse: initial loss {float(ref):.4e}, "
         + " ".join(f"{n}={float(v):.6g}" for n, v in params["coef"].items()))
 
@@ -339,6 +350,8 @@ def run_inverse(
         params, hist, n_rows = optim.lbfgs_over_pytree(
             loss_fn, params, data_l, lw, ref, lb_cfg)
         hist_lbfgs = hist[:n_rows].cpu().numpy()
+    if mesh is not None:
+        mesh.check_replicas(params)
     coef = {n: float(v) for n, v in params["coef"].items()}
     log("inverse: after L-BFGS "
         + " ".join(f"{n}={v:.6g}" for n, v in coef.items()))
@@ -372,7 +385,7 @@ def run_inverse(
     history = (np.concatenate([hist_adam, hist_lbfgs], axis=0)
                if hist_lbfgs.size else hist_adam)
 
-    if output_dir is not None:
+    if output_dir is not None and parallel.is_writer(mesh):
         out = Path(output_dir)
         out.mkdir(parents=True, exist_ok=True)
         ckpt.save_pytree(

@@ -111,7 +111,10 @@ def make_loss(
     ``bc_operators`` (per-group compiled boundary operators or None),
     ``causal`` (``{"axis", "t0", "t1", "bins", "eps"}``: slab i's residual
     weighted by exp(−eps · Σ_{j<i} L_j / Σ_j L_j), detached; loss_eqn
-    becomes the weighted term while the eqn_err columns stay unweighted).
+    becomes the weighted term while the eqn_err columns stay unweighted;
+    with a ``"mesh"`` the slab sums and counts are all-reduced over its
+    points group first, so a shard weighs its points as the global batch
+    does).
     ``ring`` is the resonance-band penalty of
     ``polish.ring_penalty_setup``, ``{"z": [N,d], "P": [N,M], "weight":
     w}``: it adds ``w·‖Pᵀ r(z)‖²``, the implied mean-square ring-mode
@@ -186,6 +189,12 @@ def make_loss(
             idx = torch.clamp((pos * nb).to(torch.int32), 0, nb - 1).long()
             sums = r2.new_zeros(nb).index_add_(0, idx, r2)
             counts = r2.new_zeros(nb).index_add_(0, idx, torch.ones_like(r2))
+            if causal.get("mesh") is not None:
+                # the slab statistics of the GLOBAL batch: this shard's
+                # sums and counts added over the points group
+                both = causal["mesh"].all_reduce(
+                    torch.stack([sums, counts]), "points")
+                sums, counts = both[0], both[1]
             l_slab = sums / torch.clamp(counts, min=1.0)
             tot = torch.sum(l_slab)
             w_slab = torch.exp(-causal["eps"] * (torch.cumsum(l_slab, 0)

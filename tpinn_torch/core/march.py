@@ -37,6 +37,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from tpinn_torch import parallel
 from tpinn_torch.core import pde, sample
 from tpinn_torch.core.train import (ProblemSpec, TrainResult, TrainSpec,
                                     _residual_with_source,
@@ -174,8 +175,8 @@ def run_time_marching(
     resume work per window unchanged; ``resume=True`` short-circuits
     finished windows from their stage checkpoints and continues a killed
     window's stage from its ``adam_state_stage_N.npz``, and ``mesh`` goes
-    through to ``run_training`` (which refuses it: ROADMAP.md Queue A item
-    14).
+    through to ``run_training`` (every window points-parallel, rank 0
+    writing; the composite's files are rank 0's too).
 
     Writes ``march.json`` and one checkpoint directory per window under
     ``output_dir``, and for 1-D/2-D problems the composite's artifact set
@@ -214,8 +215,9 @@ def run_time_marching(
             print(msg, flush=True)
 
     out = Path(output_dir) if output_dir else None
-    if out:
-        out.mkdir(parents=True, exist_ok=True)
+    wout = out if parallel.is_writer(mesh) else None
+    if wout:
+        wout.mkdir(parents=True, exist_ok=True)
 
     results: List[TrainResult] = []
     prev_predict = None
@@ -239,7 +241,7 @@ def run_time_marching(
     tsize = resolve_testing_size(problem, spec.testing_size, log, "march: ")
     X_star, axes, _ = eval_grid(problem, tsize, torch.float32, dev)
 
-    if out and problem.dim <= 2:
+    if wout and problem.dim <= 2:
         # the composite's figure set at the top level (each window wrote
         # its own inside window_k/), so a march run renders like a plain one
         ny, nx = ((1, tsize[0]) if problem.dim == 1
@@ -287,7 +289,7 @@ def run_time_marching(
         rel_l2 = float(np.linalg.norm(u - ue) / np.linalg.norm(ue))
         log(f"march composite rel-L2 vs analytic: {rel_l2:.4e}")
 
-    if out:
+    if wout:
         record = {
             "problem": problem.name,
             "axis": axis,

@@ -27,6 +27,11 @@ of the phase for ``epochs + tail_max`` steps: with ``layout="flat"`` ONE
 vector holds every parameter (one launch per step, the loss sees views of
 it), with ``layout="tree"`` one per leaf.
 
+On a mesh (``loss_fn`` from parallel.make_parallel_loss) the step's
+gradient, loss and loss_info are reduced in one all-reduce
+(``loss_fn.tpinn_reduce``) before B3 sees them, so every rank takes the
+same update and the same branches.
+
 Checkpoint and resume: ``ckpt_cb(done, state, hist)`` gets the whole
 phase state at the end of every log chunk (``10·log_every`` steps, with or
 without a ``log_fn``) and at the end of the main loop; ``init=(done,
@@ -162,6 +167,7 @@ def make_adam_phase(
         caller's params are not modified.
     """
     cfg = config
+    reduce = getattr(loss_fn, "tpinn_reduce", None)
     # the plateau ring; where the rule never fires in the main loop, one
     # slot (plateau_every=10**9, "off", would otherwise take gigabytes)
     ring_n = cfg.plateau_every if 0 < cfg.plateau_every <= cfg.epochs else 1
@@ -240,10 +246,13 @@ def make_adam_phase(
                 x.requires_grad_(True)
             loss_n, info = loss_fn(to_tree(vecs), data, lw, ref)
             grads = torch.autograd.grad(loss_n, vecs, allow_unused=True)
+            grads = [torch.zeros_like(x) if g is None else g.contiguous()
+                     for x, g in zip(vecs, grads)]
+            if reduce is not None:
+                _, info, grads = reduce(loss_n, info, grads)
             with torch.no_grad():
-                for x, g, update in zip(vecs, grads, updates):
-                    update.step(torch.zeros_like(x) if g is None
-                                else g.contiguous())
+                for g, update in zip(grads, updates):
+                    update.step(g)
             return info.detach()
 
         logged = done
@@ -504,16 +513,34 @@ def lbfgs_minimize(value_and_grad_fn: Callable, x0: Tensor,
                        converged=converged, failed=failed)
 
 
+def evaluate_loss(loss_fn: Callable, params, data, lw, ref):
+    """``loss_fn(params, data, lw, ref)``, reduced over the mesh when
+    ``loss_fn`` is a meshed loss (parallel.make_parallel_loss): the
+    global ``(loss_n, loss_info)`` on every rank."""
+    loss_n, info = loss_fn(params, data, lw, ref)
+    reduce = getattr(loss_fn, "tpinn_reduce", None)
+    if reduce is not None:
+        loss_n, info, _ = reduce(loss_n, info, [])
+    return loss_n, info
+
+
 def lbfgs_over_pytree(loss_fn: Callable, params, data, lw, ref,
                       config: LBFGSConfig):
     """L-BFGS on a parameter pytree (ravel/unravel wrapper).  Returns
-    (params, history, n_rows) with history[:n_rows] the valid loss rows."""
+    (params, history, n_rows) with history[:n_rows] the valid loss rows.
+    A meshed loss (parallel.make_parallel_loss) has its value and
+    gradient reduced over the mesh at every evaluation, so the line
+    search takes the same branches on every rank."""
     flat0, unravel = ravel_tree(params)
+
+    reduce = getattr(loss_fn, "tpinn_reduce", None)
 
     def vg(x):
         x = x.detach().requires_grad_(True)
         loss_n, info = loss_fn(unravel(x), data, lw, ref)
         (g,) = torch.autograd.grad(loss_n, x)
+        if reduce is not None:
+            loss_n, info, (g,) = reduce(loss_n, info, [g])
         return loss_n.detach(), g, info.detach()
 
     res = lbfgs_minimize(vg, flat0, config)

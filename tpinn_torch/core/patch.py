@@ -21,10 +21,20 @@ vector(s) on the card.
 
 With ``checkpoint_every > 0`` a run saves its Adam phase to
 ``adam_state_stage_1.npz`` and ``resume=True`` continues a killed run from
-it, as run_training does.  ``mesh`` (ROADMAP.md Queue A item 14) is not
-ported and raises NotImplementedError (train._check_supported);
-``lbfgs_device`` is refused with ValueError (tpinn's run_patched ignores
-it).
+it, as run_training does.  ``lbfgs_device`` is refused with ValueError
+(tpinn's run_patched ignores it).
+
+``mesh`` (tpinn_torch.parallel.make_mesh): point batches shard over its
+points axis as in run_system.  With an ensemble axis E > 1 the patches
+are split over it (patch-parallelism, :func:`shard_patches`): each
+ensemble group evaluates its P/E patches, and the window-weighted sum
+crosses the group as one all-reduce of its partial STREAMS (u and the
+partial derivatives the residual reads, all linear in the sum; forward-
+mode AD does not cross a collective), whose backward passes the
+cotangent through.  The stacked parameters stay whole on every rank, so
+the step's all-reduce sums each patch's gradient from its owner and
+B3 and L-BFGS run on the whole vector, the same on every rank.  The
+density refresh and the evaluation run the whole predictor.
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from tpinn_torch import parallel
 from tpinn_torch.core import loss as loss_mod
 from tpinn_torch.core import net, optim, pde, sample
 from tpinn_torch.core.train import (_DTYPES, _UNUSABLE, ProblemSpec,
@@ -130,9 +141,13 @@ def make_patch_predictor(
             out = out * w[..., i:i + 1]
         return out
 
-    def predictor(stacked, z):
-        feats = (2.0 * (z[None, :, :] - lo[:, None, :])
-                 / (hi - lo)[:, None, :] - 1.0)               # [P, N, d]
+    def patch_sum(stacked, z, rows=slice(None)):
+        """The partition of unity's sum over the patches ``rows`` (all of
+        them by default), normalized by every patch's window."""
+        stacked = optim._rebuild(stacked, iter(
+            x[rows] for x in optim.tree_leaves(stacked)))
+        feats = (2.0 * (z[None, :, :] - lo[rows, None, :])
+                 / (hi - lo)[rows, None, :] - 1.0)            # [P, N, d]
         if n_pad:
             feats = torch.cat([feats] + [feats[..., :1]] * n_pad, dim=-1)
         # net.mlp_apply on P nets at once: [P, N, k] @ [P, k, W], the
@@ -144,10 +159,48 @@ def make_patch_predictor(
                              for layer in stacked["layers"]]
         u_all = mspec.epsil * net.mlp_apply(batched, feats, mspec)
         w = _window(z)
-        return torch.sum(u_all * w, dim=0) / (torch.sum(w, dim=0) + 1e-12)
+        return (torch.sum(u_all * w[rows], dim=0)
+                / (torch.sum(w, dim=0) + 1e-12))
+
+    def predictor(stacked, z):
+        return patch_sum(stacked, z)
 
     predictor.tpinn_patch = (centers, half)
+    predictor.tpinn_patch_sum = patch_sum
     return predictor
+
+
+def shard_patches(predictor, count: int, mesh):
+    """The patch-parallel form of a patch predictor on ``mesh``: this
+    rank's ensemble group evaluates its ``count / E`` patches and the sum
+    crosses the group (Mesh.ensemble_sum).  Its ``tpinn_partials`` (the
+    loss's "fused" engine) takes the local sum's partials through the
+    generic engine and all-reduces them packed, once; the plain call (the
+    BC values) all-reduces u."""
+    from tpinn_torch.core import deriv
+
+    n_ens = mesh.shape["ensemble"]
+    if count % n_ens:
+        raise ValueError(f"{count} patches not divisible by the mesh's "
+                         f"ensemble axis ({n_ens})")
+    k = count // n_ens
+    rows = slice(mesh.ensemble_index * k, (mesh.ensemble_index + 1) * k)
+    part = predictor.tpinn_patch_sum
+
+    def sharded(stacked, z):
+        return mesh.ensemble_sum(part(stacked, z, rows))
+
+    def partials(stacked, z, indices):
+        local = deriv.partials(lambda zz: part(stacked, zz, rows), z,
+                               indices)
+        keys = list(local)
+        summed = mesh.ensemble_sum(torch.cat([local[i] for i in keys], 1))
+        return dict(zip(keys, torch.split(
+            summed, [local[i].shape[1] for i in keys], dim=1)))
+
+    sharded.tpinn_partials = partials
+    sharded.tpinn_patch = predictor.tpinn_patch
+    return sharded
 
 
 def init_patch_params(generator: torch.Generator, mspec: net.MLPSpec,
@@ -246,25 +299,39 @@ def run_patched(
     log(f"patched: {patch.count} patches ({'x'.join(map(str, patch.n))}), "
         f"{st.depth}x{st.width} net each, overlap {patch.overlap:g}")
 
+    n_ens = mesh.shape["ensemble"] if mesh is not None else 1
+    train_pred, engine = predictor, "auto"
+    if n_ens > 1:
+        train_pred, engine = shard_patches(predictor, patch.count,
+                                           mesh), "fused"
+        log(f"patched: {patch.count} patches sharded over {n_ens} "
+            f"ensemble-axis groups")
+    _rc = parallel.counts_rounder(mesh)
     cfg = sample.SamplerConfig(
-        n_col=spec.n_col, n_band=spec.n_band, n_adaptive=spec.n_adaptive,
-        n_bd=spec.n_bd, grid=spec.grid)
+        n_col=_rc(spec.n_col), n_band=_rc(spec.n_band),
+        n_adaptive=_rc(spec.n_adaptive), n_bd=_rc(spec.n_bd),
+        grid=spec.grid)
     sample_fn, grids = sample.sampler_for(
         cfg, problem.bc_groups, problem.lb, problem.ub, dtype, dev)
     F0 = torch.ones_like(grids[0])
     density_fn = make_density_fn(predictor, compiled, grids, source_fn,
                                  mask_fn=problem.eval_mask)
-    loss_fn = loss_mod.make_loss(predictor, compiled, source_fn,
-                                 residual_weight_fn=rw_fn)
+    loss_fn = loss_mod.make_loss(train_pred, compiled, source_fn,
+                                 engine=engine, residual_weight_fn=rw_fn)
     info_width = loss_mod.loss_info_width(len(problem.bc_groups))
 
     lw = torch.tensor(spec.lw, dtype=dtype, device=dev)
     gen_adam = seeded(1, dev)
     gen_lbfgs = seeded(2, dev)
-    data0 = sample_fn(gen_adam, F0)
+    data0_all = data0 = sample_fn(gen_adam, F0)
+    loss_fn, sample_fn = parallel.meshed(loss_fn, sample_fn, mesh,
+                                         sum_ensemble=n_ens > 1)
+    if mesh is not None:
+        data0 = parallel.shard_data(data0_all, mesh)
     with torch.no_grad():
-        ref = loss_fn(params, data0, lw,
-                      torch.ones((), dtype=dtype, device=dev))[1][0]
+        ref = optim.evaluate_loss(loss_fn, params, data0, lw,
+                                  torch.ones((), dtype=dtype,
+                                             device=dev))[1][0]
     log(f"patched: initial loss {float(ref):.4e}")
 
     out = Path(output_dir) if output_dir is not None else None
@@ -299,7 +366,7 @@ def run_patched(
             try:
                 init_phase = _load_phase(adam_ckpt, phase, adam_cfg.layout,
                                          st.adam_epochs, gen_adam, params,
-                                         data0, F0, ref)
+                                         data0_all, F0, ref, mesh)
                 log(f"patched: resuming Adam mid-run at step "
                     f"{init_phase[0]}/{st.adam_epochs}")
             except _UNUSABLE as e:
@@ -310,7 +377,7 @@ def run_patched(
         if adam_ckpt is not None and spec.checkpoint_every > 0:
             ckpt_cb = _phase_saver(adam_ckpt, spec.checkpoint_every,
                                    st.adam_epochs, adam_cfg.layout,
-                                   init_phase[0] if init_phase else 0)
+                                   init_phase[0] if init_phase else 0, mesh)
         res = phase(gen_adam, params, data0, F0, lw, ref, ckpt_cb=ckpt_cb,
                     init=init_phase)
         params = res.params
@@ -327,6 +394,8 @@ def run_patched(
             params, hist, n_rows = optim.lbfgs_over_pytree(
                 loss_fn, params, data_l, lw, ref, lb_cfg)
             hist_lbfgs = hist[:n_rows].cpu().numpy()
+    if mesh is not None:
+        mesh.check_replicas(params)
 
     predict = lambda z: predictor(params, z)
     rel_l2 = None
@@ -347,7 +416,7 @@ def run_patched(
     history = (np.concatenate([hist_adam, hist_lbfgs], axis=0)
                if hist_lbfgs.size else hist_adam)
 
-    if out is not None:
+    if out is not None and parallel.is_writer(mesh):
         out.mkdir(parents=True, exist_ok=True)
         ckpt.save_pytree(
             out / "params_stage_1.npz", params,

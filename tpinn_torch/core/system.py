@@ -24,8 +24,10 @@ density-weighted draw.
 Unknown coefficients compose: with an ``inverse`` (core.inverse.
 InverseSpec) the equations may declare coefficients, identified jointly
 with the net from full-state observations (``observations``, or drawn
-from ``problem.exact``).  ``mesh`` (ROADMAP.md Queue A item 14) is not
-ported and raises NotImplementedError.  tpinn's run_system writes no
+from ``problem.exact``).  ``mesh`` (tpinn_torch.parallel.make_mesh)
+shards the point batches over its points axis as run_training does (the
+counts rounded up to its multiples, zeros kept; the observation term
+whole on every rank; rank 0 writes).  tpinn's run_system writes no
 mid-stage Adam checkpoint and ignores ``checkpoint_every`` and
 ``lbfgs_device``; here ``checkpoint_every > 0`` and a ``lbfgs_device``
 raise ValueError.
@@ -43,6 +45,7 @@ import numpy as np
 import torch
 
 from tpinn_torch.core import loss as loss_mod
+from tpinn_torch import parallel
 from tpinn_torch.core import net, optim, pde, sample
 from tpinn_torch.core.inverse import synth_observations
 from tpinn_torch.core.train import (_DTYPES, TrainSpec, _check_supported,
@@ -251,9 +254,11 @@ def run_system(
         log(f"system: inverse mode, {len(param_names)} coefficient(s) "
             f"{param_names}, {obs[0].shape[0]} observations")
 
+    _rc = parallel.counts_rounder(mesh)
     cfg = sample.SamplerConfig(
-        n_col=spec.n_col, n_band=spec.n_band, n_adaptive=spec.n_adaptive,
-        n_bd=spec.n_bd, grid=spec.grid)
+        n_col=_rc(spec.n_col), n_band=_rc(spec.n_band),
+        n_adaptive=_rc(spec.n_adaptive), n_bd=_rc(spec.n_bd),
+        grid=spec.grid)
     sample_fn, grids = sample.sampler_for(
         cfg, problem.bc_groups, problem.lb, problem.ub, dtype, dev)
     F0 = torch.ones_like(grids[0])
@@ -285,10 +290,12 @@ def run_system(
     lw = torch.tensor(spec.lw, dtype=dtype, device=dev)
     gen_adam = seeded(1, dev)
     gen_lbfgs = seeded(2, dev)
+    loss_fn, sample_fn = parallel.meshed(loss_fn, sample_fn, mesh)
     data0 = sample_fn(gen_adam, F0)
     with torch.no_grad():
-        ref = loss_fn(params, data0, lw,
-                      torch.ones((), dtype=dtype, device=dev))[1][0]
+        ref = optim.evaluate_loss(loss_fn, params, data0, lw,
+                                  torch.ones((), dtype=dtype,
+                                             device=dev))[1][0]
     log(f"system: {compiled.n_eq} equations, {m} fields "
         f"{problem.fields}; initial loss {float(ref):.4e}")
 
@@ -326,6 +333,8 @@ def run_system(
         params, hist, n_rows = optim.lbfgs_over_pytree(
             loss_fn, params, data_l, lw, ref, lb_cfg)
         hist_lbfgs = hist[:n_rows].cpu().numpy()
+    if mesh is not None:
+        mesh.check_replicas(params)
 
     net_final = params["net"] if param_names else params
     coef = ({n: float(v) for n, v in params["coef"].items()}
@@ -355,7 +364,7 @@ def run_system(
     history = (np.concatenate([hist_adam, hist_lbfgs], axis=0)
                if hist_lbfgs.size else hist_adam)
 
-    if output_dir is not None:
+    if output_dir is not None and parallel.is_writer(mesh):
         # self-describing checkpoint: the meta carries the whole system
         # (equations, fields, domain), so app.serve rebuilds the
         # multi-output predictor without a preset

@@ -45,11 +45,21 @@ every L-BFGS round on the host CPU: the round's density draw stays on the
 training device, the stage's loss is rebuilt on the CPU, and the
 parameters come back.
 
-Not ported yet, and refused with NotImplementedError before any work:
-``mesh`` (ROADMAP.md Queue A item 14).  ``cpu_fallback=True`` raises
-ValueError: the port never retries a phase elsewhere, so
-``TrainResult.fell_back`` is always False; ``lbfgs_device`` takes None
-and "cpu" only (tpinn ignores other values).
+``mesh``: a tpinn_torch.parallel.Mesh (make_mesh; every rank calls
+``run_training`` with the same arguments) — the sample counts round up
+to multiples of its points axis (round_count), every rank draws the
+global batch and trains on its shard, the Adam phase and L-BFGS reduce
+the gradient and loss_info in one all-reduce a step (causal runs add
+the slab statistics' one), the density refresh, the polish, the
+correction and the float64 evaluation run whole on every rank, and rank
+0 alone writes the artifacts and checkpoints (a phase file holds the
+global point set; every rank reads it on resume).  Every rank returns
+the same result, its parameters checked equal across ranks after each
+stage.  Anything but a Mesh raises TypeError, and ``lbfgs_device="cpu"``
+with a mesh ValueError.  ``cpu_fallback=True`` raises ValueError: the
+port never retries a phase elsewhere, so ``TrainResult.fell_back`` is
+always False; ``lbfgs_device`` takes None and "cpu" only (tpinn ignores
+other values).
 
 ``run_pinn_training`` is the online calculator's entry: the reference's
 kwarg schema (a typed equation, boundary groups, a 2-D box) turned into a
@@ -306,28 +316,41 @@ def _raw_chain(mspecs, feature_map, lb, ub):
 _UNUSABLE = (KeyError, ValueError, OSError, EOFError, zipfile.BadZipFile)
 
 
-def _load_phase(path, phase, layout, epochs, gen, params, data, F, ref):
+def _load_phase(path, phase, layout, epochs, gen, params, data, F, ref,
+                mesh=None):
     """``(done, state, hist)`` of the phase file ``path`` for ``phase``
-    (its make_state0 the template); raises one of ``_UNUSABLE`` where the
-    file cannot continue this phase."""
+    (its make_state0 the template, ``data`` the global point set); raises
+    one of ``_UNUSABLE`` where the file cannot continue this phase.  On a
+    mesh the saved point set is cut to this rank's shard."""
     like = phase.make_state0(gen, params, data, F, ref)
-    init = ckpt.load_phase_state(path, like, layout)
-    if init[0] > epochs:
-        raise ValueError(f"saved at step {init[0]}, past this phase's "
+    done, state, hist = ckpt.load_phase_state(path, like, layout)
+    if done > epochs:
+        raise ValueError(f"saved at step {done}, past this phase's "
                          f"{epochs}")
-    return init
+    if mesh is not None:
+        from tpinn_torch.parallel.mesh import shard_data
+
+        state = dict(state, data=shard_data(state["data"], mesh))
+    return done, state, hist
 
 
-def _phase_saver(path, every, epochs, layout, done0):
+def _phase_saver(path, every, epochs, layout, done0, mesh=None):
     """The Adam phase's ``ckpt_cb``: the state goes to ``path`` once
     ``every`` steps have passed since the last save (``done0`` at the
-    start), and at the end of the main loop."""
+    start), and at the end of the main loop.  On a mesh every rank calls
+    it (the shards' point sets are gathered into the global one) and rank
+    0 writes."""
+    from tpinn_torch.parallel.mesh import gather_data, is_writer
+
     last = done0
 
     def ckpt_cb(done, state, hist):
         nonlocal last
         if done - last >= every or done >= epochs:
-            ckpt.save_phase_state(path, done, state, hist, layout)
+            if mesh is not None:
+                state = dict(state, data=gather_data(state["data"], mesh))
+            if is_writer(mesh):
+                ckpt.save_phase_state(path, done, state, hist, layout)
             last = done
 
     return ckpt_cb
@@ -428,16 +451,16 @@ def resolve_device(device) -> torch.device:
 
 
 def _check_supported(spec: TrainSpec, mesh) -> None:
-    def later(what, item):
-        raise NotImplementedError(
-            f"{what} is not ported to tpinn_torch yet (ROADMAP.md Queue A "
-            f"item {item}, a later PR)")
+    from tpinn_torch.parallel.mesh import check_mesh
 
+    check_mesh(mesh)
     if spec.cpu_fallback:
         raise ValueError("cpu_fallback=True: tpinn_torch never retries a "
                          "phase on another device")
-    if mesh is not None:
-        later("mesh (points data parallelism)", 14)
+    if mesh is not None and spec.lbfgs_device is not None:
+        raise ValueError("lbfgs_device='cpu' with a mesh: a meshed run's "
+                         "L-BFGS reduces over the mesh on the training "
+                         "device")
     if spec.lsq_polish not in ("off", "auto", "on"):
         raise ValueError(f"lsq_polish={spec.lsq_polish!r}")
     if spec.deflation not in ("off", "auto", "full"):
@@ -482,10 +505,15 @@ def run_training(
         spec = spec.with_default_stages()
     dev = resolve_device(device)
     dtype = _DTYPES[spec.dtype]
+    from tpinn_torch import parallel
+    from tpinn_torch.parallel.mesh import is_writer
 
+    # out: where resume reads (every rank); wout: where this rank writes
+    # (rank 0 of a mesh)
     out = Path(output_dir) if output_dir else None
-    if out:
-        out.mkdir(parents=True, exist_ok=True)
+    wout = out if is_writer(mesh) else None
+    if wout:
+        wout.mkdir(parents=True, exist_ok=True)
 
     def log(msg: str):
         if log_fn is not None:
@@ -619,12 +647,16 @@ def run_training(
         predictor = (net.wrap_hard_bc(raw_predictor, *hard_fns)
                      if hard_fns is not None else raw_predictor)
 
-        # --- sampler (counts scaled per stage)
+        # --- sampler (counts scaled per stage; on a mesh rounded up to
+        #     multiples of its points axis, as tpinn rounds them)
         sc = st.sample_scale
+        _rc = ((lambda n: n) if mesh is None
+               else (lambda n: parallel.round_count(max(1, n), mesh)))
         cfg = sample.SamplerConfig(
-            n_col=int(spec.n_col * sc), n_band=int(spec.n_band * sc),
-            n_adaptive=int(spec.n_adaptive * sc), n_bd=int(spec.n_bd * sc),
-            grid=spec.grid)
+            n_col=_rc(int(spec.n_col * sc)),
+            n_band=_rc(int(spec.n_band * sc)),
+            n_adaptive=_rc(int(spec.n_adaptive * sc)),
+            n_bd=_rc(int(spec.n_bd * sc)), grid=spec.grid)
         sample_fn, grids = sample.sampler_for(
             cfg, problem.bc_groups, problem.lb, problem.ub, dtype, dev)
         F0 = torch.ones_like(grids[0])
@@ -662,7 +694,7 @@ def run_training(
             causal_arg = {"axis": cax, "t0": float(problem.lb[cax]),
                           "t1": float(problem.ub[cax]),
                           "bins": int(spec.causal_bins),
-                          "eps": float(spec.causal_eps)}
+                          "eps": float(spec.causal_eps), "mesh": mesh}
             log(f"stage {stage_no}: causal weighting on "
                 f"{spec.causal_axis!r} ({spec.causal_bins} slabs, "
                 f"eps {spec.causal_eps:g}, Adam phase)")
@@ -696,18 +728,28 @@ def run_training(
 
         gen_adam = seeded(4 * si + 1, dev)
         gen_lbfgs = seeded(4 * si + 2, dev)
-        data0 = sample_fn(gen_adam, F0)
+        data0_all = data0 = sample_fn(gen_adam, F0)
+        sample_all = sample_fn
+        if mesh is not None:
+            # every rank draws the global batch and trains on its shard;
+            # the losses' values and gradients reduce over the mesh
+            shared = loss_fn_adam is loss_fn
+            loss_fn = parallel.make_parallel_loss(loss_fn, mesh)
+            loss_fn_adam = (loss_fn if shared else
+                            parallel.make_parallel_loss(loss_fn_adam, mesh))
+            sample_fn = parallel.sharded_sampler(sample_all, mesh)
+            data0 = parallel.shard_data(data0_all, mesh)
 
-        if out and problem.dim <= 2:
+        if wout and problem.dim <= 2:
             limit = [problem.lb[0], problem.ub[0]] + (
                 [problem.lb[1], problem.ub[1]] if problem.dim == 2
                 else [0.0, 1.0])
-            x_col = data0["x_col"]
+            x_col = data0_all["x_col"]
             if problem.dim == 1:
                 x_col = torch.cat([x_col, torch.zeros_like(x_col)], dim=1)
             f0_np = F0.cpu().numpy()
             artifacts.write_collocation(
-                out / f"collocation_point_{stage_no}.npz",
+                wout / f"collocation_point_{stage_no}.npz",
                 U=f0_np if problem.dim == 2 else f0_np.T,
                 X_col=x_col.cpu().numpy(), limit=limit)
 
@@ -728,8 +770,9 @@ def run_training(
         if not resumed:
             # --- normalization reference = the loss at initialization
             with torch.no_grad():
-                ref = loss_fn(params, data0, stage_lw,
-                              torch.ones((), dtype=dtype, device=dev))[1][0]
+                ref = optim.evaluate_loss(
+                    loss_fn, params, data0, stage_lw,
+                    torch.ones((), dtype=dtype, device=dev))[1][0]
             log(f"stage {stage_no}: initial loss {float(ref):.4e}")
 
             adam_cfg = optim.AdamConfig(
@@ -757,7 +800,8 @@ def run_training(
             if resume and adam_ckpt is not None and adam_ckpt.exists():
                 def load_state(ph, layout):
                     return _load_phase(adam_ckpt, ph, layout, st.adam_epochs,
-                                       gen_adam, params, data0, F0, ref)
+                                       gen_adam, params, data0_all, F0, ref,
+                                       mesh)
 
                 try:
                     init_phase = load_state(phase, spec.adam_layout)
@@ -786,7 +830,8 @@ def run_training(
             if adam_ckpt is not None and spec.checkpoint_every > 0:
                 ckpt_cb = _phase_saver(adam_ckpt, spec.checkpoint_every,
                                        st.adam_epochs, adam_cfg.layout,
-                                       init_phase[0] if init_phase else 0)
+                                       init_phase[0] if init_phase else 0,
+                                       mesh)
 
             with adam_matmul_precision(spec.adam_precision):
                 res = phase(gen_adam, params, data0, F0, stage_lw, ref,
@@ -821,15 +866,16 @@ def run_training(
             elif st.lbfgs_sample_scale != 1.0:
                 ls = st.lbfgs_sample_scale * sc
                 lcfg = sample.SamplerConfig(
-                    n_col=int(spec.n_col * ls), n_band=int(spec.n_band * ls),
-                    n_adaptive=int(spec.n_adaptive * ls),
-                    n_bd=int(spec.n_bd * ls), grid=spec.grid)
+                    n_col=_rc(int(spec.n_col * ls)),
+                    n_band=_rc(int(spec.n_band * ls)),
+                    n_adaptive=_rc(int(spec.n_adaptive * ls)),
+                    n_bd=_rc(int(spec.n_bd * ls)), grid=spec.grid)
                 mk = (sample.make_sampler_1d if problem.dim == 1
                       else sample.make_sampler)
                 sample_fn_l, _ = mk(lcfg, problem.bc_groups, problem.lb,
                                     problem.ub, dtype, dev)
             else:
-                sample_fn_l = sample_fn
+                sample_fn_l = sample_all
 
             # lbfgs_device="cpu": the rounds run on the host CPU on the
             # stage's loss rebuilt there (its chain and constants on the
@@ -858,9 +904,12 @@ def run_training(
                 if lbfgs_dtype != dtype:
                     params = _cast_tree(params, lbfgs_dtype)
                     data_lbfgs = _cast_tree(data_lbfgs, lbfgs_dtype)
+                # this rank's shard; the polish solves over the global set
+                data_l = (data_lbfgs if mesh is None
+                          else parallel.shard_data(data_lbfgs, mesh))
                 params, hist_full, n_rows = optim.lbfgs_over_pytree(
                     loss_l, _to_device(params, where),
-                    _to_device(data_lbfgs, where),
+                    _to_device(data_l, where),
                     stage_lw.to(where, lbfgs_dtype),
                     ref.to(where, lbfgs_dtype), lbfgs_cfg)
                 params = _to_device(params, dev)
@@ -939,16 +988,18 @@ def run_training(
         histories.append(hist_stage)
         hist_cum = np.concatenate(histories, axis=0)
 
-        if out and not resumed:
+        if mesh is not None:
+            mesh.check_replicas(params, f"stage {stage_no} parameters")
+        if wout and not resumed:
             if problem.dim <= 2:
                 _write_stage_artifacts(
-                    out, stage_no, problem, spec, axes, U, F, exact_star,
+                    wout, stage_no, problem, spec, axes, U, F, exact_star,
                     hist_stage if stage_no == 1 else hist_cum)
             else:
-                artifacts.write_loss(out / f"loss_{stage_no}.npz",
+                artifacts.write_loss(wout / f"loss_{stage_no}.npz",
                                      hist_stage if stage_no == 1 else hist_cum)
             ckpt.save_pytree(
-                out / f"params_stage_{stage_no}.npz", params,
+                wout / f"params_stage_{stage_no}.npz", params,
                 meta={"stage": stage_no, "scl": float(scl),
                       "epsil": float(epsil), "problem": problem.name,
                       "chain": chain_specs,
