@@ -26,7 +26,7 @@ import torch
 from tpinn_torch.app import serve
 from tpinn_torch.core import net, pde, taylor
 from tpinn_torch.kernels import adam, mlp_taylor, taylor_vjp
-from tpinn_torch.utils import checkpoint
+from tpinn_torch.utils import checkpoint, profiling
 
 IDX5 = [(), (0,), (1,), (0, 0), (1, 1)]
 IDX6 = IDX5 + [(0, 1)]
@@ -208,6 +208,25 @@ def test_backward_kernel_matches_plain_on_card(cuda_device, name):
     with pytest.raises(ValueError, match="requires_grad"):
         taylor_vjp.kernel_streams(params, z.clone().requires_grad_(True), spec,
                                   fm, lb, ub, streams)
+
+
+@pytest.mark.cuda
+def test_kernel_spans_once_a_launch_on_card(cuda_device, tmp_path):
+    """Under a profiler, each B1 forward opens one ``b1.launch`` and each
+    B2 backward (on autograd's device thread) one ``b2.launch``."""
+    params, z, spec, fm, lb, ub, streams = _setup("annulus-6x80-ragged",
+                                                  cuda_device)
+    leaves = _leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    with profiling.trace(str(tmp_path / "prof")) as prof:
+        for _ in range(2):
+            out = taylor_vjp.kernel_streams(params, z, spec, fm, lb, ub,
+                                            streams)
+            torch.autograd.grad(out.sum(), leaves)
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CPU]
+    assert (names.count("b1.launch"), names.count("b2.launch")) == (2, 2)
 
 
 @pytest.mark.cuda

@@ -34,6 +34,8 @@ from typing import Callable, List, Sequence, Tuple
 
 import torch
 
+from tpinn_torch.utils.profiling import span
+
 Tensor = torch.Tensor
 Params = List[dict]  # [{"w": [din, dout], "b": [dout]} per layer]
 
@@ -322,8 +324,9 @@ def hard_bc_partials(raw_partials, lift_fn, bubble_fn):
         need.add(())
         need = sorted(need, key=lambda t: (len(t), t))
         v = raw_partials(params, z, need)
-        l = deriv.partials(lift_fn, z, need)
-        b = deriv.partials(bubble_fn, z, need)
+        with span("partials.lift_bubble"):
+            l = deriv.partials(lift_fn, z, need)
+            b = deriv.partials(bubble_fn, z, need)
         out = {}
         for ix in indices:
             if ix == ():

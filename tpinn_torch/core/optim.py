@@ -60,6 +60,7 @@ import torch
 
 from tpinn_torch.core.net import detach_tree
 from tpinn_torch.kernels import adam as adam_kernel
+from tpinn_torch.utils.profiling import read, span
 
 Tensor = torch.Tensor
 
@@ -244,8 +245,10 @@ def make_adam_phase(
         def step_update():
             for x in vecs:
                 x.requires_grad_(True)
-            loss_n, info = loss_fn(to_tree(vecs), data, lw, ref)
-            grads = torch.autograd.grad(loss_n, vecs, allow_unused=True)
+            with span("adam.forward"):
+                loss_n, info = loss_fn(to_tree(vecs), data, lw, ref)
+            with span("adam.backward"):
+                grads = torch.autograd.grad(loss_n, vecs, allow_unused=True)
             grads = [torch.zeros_like(x) if g is None else g.contiguous()
                      for x, g in zip(vecs, grads)]
             if reduce is not None:
@@ -264,7 +267,8 @@ def make_adam_phase(
                 # resample AFTER the update (the reference's loop order)
                 if (sample_fn is not None and step % cfg.resample_every == 0
                         and step > 0):
-                    data = sample_fn(gen, F)
+                    with span("adam.resample"):
+                        data = sample_fn(gen, F)
                 if (density_fn is not None
                         and (step + 1) % cfg.density_every == 0):
                     F = density_fn(detach_tree(to_tree(vecs)))
@@ -397,8 +401,8 @@ def wolfe_linesearch(vg, x, f0, g0, info0, d, alpha0: float,
     failed).  ``record(info)`` is called for every function evaluation
     (the "evals" history).  Returns (alpha, f, g, info, ok)."""
     c1, c2 = cfg.c1, cfg.c2
-    dphi0 = float(torch.dot(g0, d))
-    phi0 = float(f0)
+    dphi0 = read(torch.dot(g0, d), "lbfgs.search")
+    phi0 = read(f0, "lbfgs.search")
     max_evals = cfg.max_bracket + cfg.max_linesearch
     mode, evals = 0, 0
     a_prev, phi_prev, dphi_prev = 0.0, phi0, dphi0
@@ -410,8 +414,8 @@ def wolfe_linesearch(vg, x, f0, g0, info0, d, alpha0: float,
         f_t, g, info = vg(x + a * d)
         if record is not None:
             record(info)
-        f = float(f_t)
-        df = float(torch.dot(g, d))
+        f = read(f_t, "lbfgs.search")
+        df = read(torch.dot(g, d), "lbfgs.search")
         armijo = f <= phi0 + c1 * a * dphi0
         curv = abs(df) <= -c2 * dphi0
         bracketing = mode == 0
@@ -477,38 +481,44 @@ def lbfgs_minimize(value_and_grad_fn: Callable, x0: Tensor,
         rows += 1
 
     while not done and it < config.max_iters:
-        d = _two_loop(g, S, Y, rho, count, head, gamma, m)
-        if not float(torch.dot(d, g)) < 0.0:   # not a descent direction
-            d = -g
-        alpha0 = (min(1.0, 1.0 / max(float(g.abs().sum()), 1e-12))
-                  if count == 0 else 1.0)
-        alpha, f_new, g_new, info_new, ok = wolfe_linesearch(
-            value_and_grad_fn, x, f, g, info, d, alpha0, config,
-            record if config.history == "evals" else None)
-        x_new = x + alpha * d
-        sk = x_new - x
-        yk = g_new - g
-        sy = float(torch.dot(sk, yk))
-        curv_ok = sy > 1e-12 * float(torch.linalg.norm(sk)) * float(
-            torch.linalg.norm(yk))
-        if ok and curv_ok:
-            S[head % m] = sk
-            Y[head % m] = yk
-            rho[head % m] = 1.0 / sy
-            count = min(count + 1, m)
-            head = (head + 1) % m
-            gamma = torch.as_tensor(sy / max(float(torch.dot(yk, yk)), 1e-30),
-                                    dtype=x0.dtype, device=x0.device)
-        it += 1
-        if config.history == "iters" and ok:
-            record(info_new)
-        converged = float(g_new.abs().max()) <= config.tolerance
-        if ok:
-            x, f, g, info = x_new, f_new, g_new, info_new
-        done = (not ok) or converged
-        failed = not ok
+        with span("lbfgs.iter"):
+            d = _two_loop(g, S, Y, rho, count, head, gamma, m)
+            # not a descent direction
+            if not read(torch.dot(d, g), "lbfgs.iter") < 0.0:
+                d = -g
+            alpha0 = (min(1.0, 1.0 / max(read(g.abs().sum(), "lbfgs.iter"),
+                                         1e-12))
+                      if count == 0 else 1.0)
+            alpha, f_new, g_new, info_new, ok = wolfe_linesearch(
+                value_and_grad_fn, x, f, g, info, d, alpha0, config,
+                record if config.history == "evals" else None)
+            x_new = x + alpha * d
+            sk = x_new - x
+            yk = g_new - g
+            sy = read(torch.dot(sk, yk), "lbfgs.iter")
+            s_norm = read(torch.linalg.norm(sk), "lbfgs.iter")
+            y_norm = read(torch.linalg.norm(yk), "lbfgs.iter")
+            curv_ok = sy > 1e-12 * s_norm * y_norm
+            if ok and curv_ok:
+                S[head % m] = sk
+                Y[head % m] = yk
+                rho[head % m] = 1.0 / sy
+                count = min(count + 1, m)
+                head = (head + 1) % m
+                yy = read(torch.dot(yk, yk), "lbfgs.iter")
+                gamma = torch.as_tensor(sy / max(yy, 1e-30), dtype=x0.dtype,
+                                        device=x0.device)
+            it += 1
+            if config.history == "iters" and ok:
+                record(info_new)
+            converged = (read(g_new.abs().max(), "lbfgs.iter")
+                         <= config.tolerance)
+            if ok:
+                x, f, g, info = x_new, f_new, g_new, info_new
+            done = (not ok) or converged
+            failed = not ok
 
-    converged = float(g.abs().max()) <= config.tolerance
+    converged = read(g.abs().max(), "lbfgs.iter") <= config.tolerance
     return LBFGSResult(x=x, f=f, g=g, history=hist, n_iters=it, n_rows=rows,
                        converged=converged, failed=failed)
 
@@ -536,12 +546,13 @@ def lbfgs_over_pytree(loss_fn: Callable, params, data, lw, ref,
     reduce = getattr(loss_fn, "tpinn_reduce", None)
 
     def vg(x):
-        x = x.detach().requires_grad_(True)
-        loss_n, info = loss_fn(unravel(x), data, lw, ref)
-        (g,) = torch.autograd.grad(loss_n, x)
-        if reduce is not None:
-            loss_n, info, (g,) = reduce(loss_n, info, [g])
-        return loss_n.detach(), g, info.detach()
+        with span("lbfgs.eval"):
+            x = x.detach().requires_grad_(True)
+            loss_n, info = loss_fn(unravel(x), data, lw, ref)
+            (g,) = torch.autograd.grad(loss_n, x)
+            if reduce is not None:
+                loss_n, info, (g,) = reduce(loss_n, info, [g])
+            return loss_n.detach(), g, info.detach()
 
     res = lbfgs_minimize(vg, flat0, config)
     return detach_tree(unravel(res.x)), res.history, res.n_rows

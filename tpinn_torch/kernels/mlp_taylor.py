@@ -39,6 +39,7 @@ import torch
 from tpinn_torch.core import net as net_mod
 from tpinn_torch.core import taylor
 from tpinn_torch.core.net import FeatureMap, MLPSpec
+from tpinn_torch.utils.profiling import span
 
 # kernel launches since import (or since the caller last reset it)
 LAUNCHES = 0
@@ -297,36 +298,38 @@ def _sm_count(index: int) -> int:
 def _launch(params: dict, z: torch.Tensor, spec: MLPSpec, fm: FeatureMap,
             lb, ub, streams, dims) -> torch.Tensor:
     global LAUNCHES
-    from tpinn_torch.kernels import _build
+    with span("b1.launch"):
+        from tpinn_torch.kernels import _build
 
-    lib = _build.load("taylor2_fwd")
-    fn = lib.tpinn_taylor2_fwd if lib.tpinn_taylor2_fwd.argtypes else \
-        _kernel_fn(lib)
+        lib = _build.load("taylor2_fwd")
+        fn = lib.tpinn_taylor2_fwd if lib.tpinn_taylor2_fwd.argtypes else \
+            _kernel_fn(lib)
 
-    layers = params["layers"]
-    n = z.shape[0]
-    sms = _sm_count(z.device.index)
-    head, mid = _static_args(
-        tuple(dims), tuple(tuple(st) for st in streams), tuple(fm.kinds),
-        fm.pad_to, spec.act_first, spec.act_hidden, float(spec.scl),
-        float(spec.epsil), tuple(lb), tuple(ub), n, sms)
+        layers = params["layers"]
+        n = z.shape[0]
+        sms = _sm_count(z.device.index)
+        head, mid = _static_args(
+            tuple(dims), tuple(tuple(st) for st in streams), tuple(fm.kinds),
+            fm.pad_to, spec.act_first, spec.act_hidden, float(spec.scl),
+            float(spec.epsil), tuple(lb), tuple(ub), n, sms)
 
-    def ptrs(ts):
-        return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+        def ptrs(ts):
+            return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
 
-    out = torch.empty((n, len(streams)), dtype=torch.float32, device=z.device)
-    with torch.cuda.device(z.device):
-        stream = torch.cuda.current_stream(z.device).cuda_stream
-        err = fn(z.data_ptr(), n, *head,
-                 ptrs([layer["w"] for layer in layers]),
-                 ptrs([layer["b"] for layer in layers]), *mid,
-                 out.data_ptr(), stream)
-    if err != 0:
-        what = _ERRORS.get(err) or f"CUDA error {err}"
-        raise RuntimeError(f"taylor2_fwd launch failed: {what}")
-    with _COUNT_LOCK:
-        LAUNCHES += 1
-    return out
+        out = torch.empty((n, len(streams)), dtype=torch.float32,
+                          device=z.device)
+        with torch.cuda.device(z.device):
+            stream = torch.cuda.current_stream(z.device).cuda_stream
+            err = fn(z.data_ptr(), n, *head,
+                     ptrs([layer["w"] for layer in layers]),
+                     ptrs([layer["b"] for layer in layers]), *mid,
+                     out.data_ptr(), stream)
+        if err != 0:
+            what = _ERRORS.get(err) or f"CUDA error {err}"
+            raise RuntimeError(f"taylor2_fwd launch failed: {what}")
+        with _COUNT_LOCK:
+            LAUNCHES += 1
+        return out
 
 
 def taylor2_streams(params: dict, z: torch.Tensor, spec: MLPSpec,

@@ -41,6 +41,7 @@ import torch
 from tpinn_torch.core import taylor
 from tpinn_torch.core.net import FeatureMap, MLPSpec
 from tpinn_torch.kernels import mlp_taylor
+from tpinn_torch.utils.profiling import span
 
 # kernel launches since import (or since the caller last reset it)
 LAUNCHES = 0
@@ -270,49 +271,52 @@ def _static_args(dims, streams, kinds, pad_to, act_first, act_hidden, scl,
 
 def _launch(layers, z, ct, spec, fm, lb, ub, streams) -> List[dict]:
     global LAUNCHES
-    from tpinn_torch.kernels import _build
+    with span("b2.launch"):
+        from tpinn_torch.kernels import _build
 
-    lib = _build.load("taylor2_bwd")
-    fn = lib.tpinn_taylor2_bwd if lib.tpinn_taylor2_bwd.argtypes else \
-        _kernel_fn(lib)
+        lib = _build.load("taylor2_bwd")
+        fn = lib.tpinn_taylor2_bwd if lib.tpinn_taylor2_bwd.argtypes else \
+            _kernel_fn(lib)
 
-    n = z.shape[0]
-    dims = [fm.num_features] + [int(layer["w"].shape[1]) for layer in layers]
-    sms = torch.cuda.get_device_properties(z.device).multi_processor_count
-    plan, ws_stride, n_params, head, mid = _static_args(
-        tuple(dims), tuple(tuple(st) for st in streams), tuple(fm.kinds),
-        fm.pad_to, spec.act_first, spec.act_hidden, float(spec.scl),
-        float(spec.epsil), tuple(lb), tuple(ub), n, sms)
-    L = len(layers)
+        n = z.shape[0]
+        dims = [fm.num_features] + [int(layer["w"].shape[1])
+                                    for layer in layers]
+        sms = torch.cuda.get_device_properties(z.device).multi_processor_count
+        plan, ws_stride, n_params, head, mid = _static_args(
+            tuple(dims), tuple(tuple(st) for st in streams), tuple(fm.kinds),
+            fm.pad_to, spec.act_first, spec.act_hidden, float(spec.scl),
+            float(spec.epsil), tuple(lb), tuple(ub), n, sms)
+        L = len(layers)
 
-    def ptrs(ts):
-        return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+        def ptrs(ts):
+            return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
 
-    grad = torch.empty(n_params, dtype=torch.float32, device=z.device)
-    # every block zeroes and writes its own row
-    partial = torch.empty((plan.blocks, n_params), dtype=torch.float32,
-                          device=z.device)
-    workspace = torch.empty(max(1, plan.blocks * ws_stride),
-                            dtype=torch.float32, device=z.device)
-    with torch.cuda.device(z.device):
-        stream = torch.cuda.current_stream(z.device).cuda_stream
-        err = fn(z.data_ptr(), n, *head,
-                 ptrs([layer["w"] for layer in layers]),
-                 ptrs([layer["b"] for layer in layers]), *mid, ct.data_ptr(),
-                 plan.blocks, workspace.data_ptr(), ws_stride,
-                 partial.data_ptr(), grad.data_ptr(), stream)
-    if err != 0:
-        what = _ERRORS.get(err) or f"CUDA error {err}"
-        raise RuntimeError(f"taylor2_bwd launch failed: {what}")
-    with _COUNT_LOCK:
-        LAUNCHES += 1
-    grads, off = [], 0
-    for l in range(L):
-        w_n = dims[l] * dims[l + 1]
-        grads.append({"w": grad[off:off + w_n].view(dims[l], dims[l + 1]),
-                      "b": grad[off + w_n:off + w_n + dims[l + 1]]})
-        off += w_n + dims[l + 1]
-    return grads
+        grad = torch.empty(n_params, dtype=torch.float32, device=z.device)
+        # every block zeroes and writes its own row
+        partial = torch.empty((plan.blocks, n_params), dtype=torch.float32,
+                              device=z.device)
+        workspace = torch.empty(max(1, plan.blocks * ws_stride),
+                                dtype=torch.float32, device=z.device)
+        with torch.cuda.device(z.device):
+            stream = torch.cuda.current_stream(z.device).cuda_stream
+            err = fn(z.data_ptr(), n, *head,
+                     ptrs([layer["w"] for layer in layers]),
+                     ptrs([layer["b"] for layer in layers]), *mid,
+                     ct.data_ptr(),
+                     plan.blocks, workspace.data_ptr(), ws_stride,
+                     partial.data_ptr(), grad.data_ptr(), stream)
+        if err != 0:
+            what = _ERRORS.get(err) or f"CUDA error {err}"
+            raise RuntimeError(f"taylor2_bwd launch failed: {what}")
+        with _COUNT_LOCK:
+            LAUNCHES += 1
+        grads, off = [], 0
+        for l in range(L):
+            w_n = dims[l] * dims[l + 1]
+            grads.append({"w": grad[off:off + w_n].view(dims[l], dims[l + 1]),
+                          "b": grad[off + w_n:off + w_n + dims[l + 1]]})
+            off += w_n + dims[l + 1]
+        return grads
 
 
 def taylor2_backward(layers: Sequence[dict], z: torch.Tensor, ct: torch.Tensor,

@@ -3,6 +3,9 @@
 - ``trace(logdir)``: a ``torch.profiler`` trace of the CPU and, where a
   card is present, of its CUDA kernels, written to ``logdir`` as a Chrome
   trace (Perfetto, chrome://tracing);
+- ``span(name)``: a named range of the program (one of ``SPANS``) while a
+  profiler runs, nothing otherwise; ``read(x, site)``: a host read of a
+  device scalar inside the span ``read.<site>``;
 - ``StepTimer``: per-step times, from CUDA events when the step's observed
   output lies on a card, else from the host clock;
 - ``timed(fn)``: time per call of ``fn`` after warm-up calls, the card
@@ -17,6 +20,48 @@ from pathlib import Path
 from typing import Callable, Iterator
 
 import torch
+
+# The program's named ranges, where they are opened:
+#   adam.forward, adam.backward  core/optim.py, the Adam step's loss and its
+#                                torch.autograd.grad
+#   adam.resample                core/optim.py, the Adam phase's new points
+#   partials.lift_bubble         core/net.py hard_bc_partials, the lift's
+#                                and the bubble's partials
+#   b1.launch, b2.launch         kernels/mlp_taylor.py, kernels/taylor_vjp.py
+#                                ``_launch``: a kernel's host path (B2's on
+#                                autograd's device thread)
+#   lbfgs.iter                   core/optim.py lbfgs_minimize, one iterate:
+#                                two-loop, line search, history update
+#   lbfgs.eval                   core/optim.py lbfgs_over_pytree, one
+#                                loss-and-gradient evaluation
+#   read.lbfgs.search,           host reads of a device scalar in the line
+#   read.lbfgs.iter              search and in the iterate (``read``)
+SPANS = ("adam.forward", "adam.backward", "adam.resample",
+         "partials.lift_bubble", "b1.launch", "b2.launch", "lbfgs.iter",
+         "lbfgs.eval", "read.lbfgs.search", "read.lbfgs.iter")
+
+_NULL = contextlib.nullcontext()
+# set by torch.profiler while it runs, for every thread
+_autograd_profiler = torch.autograd.profiler
+
+
+def span(name: str):
+    """``torch.profiler.record_function(name)`` while a profiler runs (a
+    range on the profiler's clock, in ``trace``'s Chrome trace), else a
+    shared null context: one flag check.  ``name`` must be one of
+    ``SPANS``; while profiling another name raises ValueError."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NULL
+    if name not in SPANS:
+        raise ValueError(f"span {name!r} is not one of {SPANS}")
+    return torch.profiler.record_function(name)
+
+
+def read(x, site: str) -> float:
+    """``float(x)`` inside the span ``read.<site>``: a host read of a
+    device value (the host waits for the card)."""
+    with span("read." + site):
+        return float(x)
 
 
 def _cuda_ready() -> bool:
