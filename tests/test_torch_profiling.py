@@ -126,7 +126,7 @@ def test_every_span_is_opened_in_the_program():
     read_at = {"read." + s for s in re.findall(r'\bread\([^()]*(?:\([^()]*\)'
                                                r'[^()]*)*, "([\w.]+)"\)', src)}
     assert opened | read_at == set(profiling.SPANS)
-    assert len(profiling.SPANS) == len(set(profiling.SPANS)) == 10
+    assert len(profiling.SPANS) == len(set(profiling.SPANS)) == 11
 
 
 def _adam_run(profiled, tmp_path):
@@ -218,3 +218,32 @@ def test_hard_bc_partials_one_lift_bubble_span(tmp_path, one_thread):
         out = hard.tpinn_partials(params, z, idx)
     assert _count(prof, "partials.lift_bubble") == 1
     assert set(out) == set(idx)
+
+
+def test_hard_bc_partials_hit_span_on_the_second_call(tmp_path, one_thread):
+    coords = ("r", "t")
+    spec = net.MLPSpec(depth=2, width=8)
+    fm = net.feature_map_for(("minmax", "periodic"))
+    lb, ub = torch.tensor([0.1, 0.0]), torch.tensor([1.0, 6.283])
+    hard = net.wrap_hard_bc(net.make_predictor(spec, fm, lb, ub),
+                            pde.compile_coord_expr("(1 - r)/0.9", coords),
+                            pde.compile_coord_expr("(r - 0.1)*(1 - r)",
+                                                   coords))
+    params = net.init_params(torch.Generator().manual_seed(0), spec, fm,
+                             torch.device("cpu"))
+    z = lb + torch.rand((32, 2), generator=torch.Generator().manual_seed(1)) \
+        * (ub - lb)
+    idx = [(), (0,), (1,), (0, 0), (1, 1)]
+    with profiling.trace(str(tmp_path / "first")) as prof:
+        first = hard.tpinn_partials(params, z, idx)
+    assert _count(prof, "partials.lift_bubble") == 1
+    assert _count(prof, "partials.lift_bubble.hit") == 0
+    with profiling.trace(str(tmp_path / "second")) as prof:
+        second = hard.tpinn_partials(params, z, idx)
+    calls = [e for e in prof.events() if e.name == "partials.lift_bubble"]
+    hits = [e for e in prof.events() if e.name == "partials.lift_bubble.hit"]
+    assert len(calls) == len(hits) == 1
+    assert (calls[0].time_range.start <= hits[0].time_range.start
+            and hits[0].time_range.end <= calls[0].time_range.end)
+    for ix in idx:
+        assert torch.equal(first[ix], second[ix])

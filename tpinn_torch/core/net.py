@@ -300,6 +300,16 @@ def compose_params(stage_params, prev_params) -> dict:
     return {"stage": stage_params, "prev": prev_params}
 
 
+def _plain(t: Tensor) -> bool:
+    """Whether ``t`` carries no autograd or functorch state: no gradient
+    tracking, not an inference tensor, not wrapped by a ``torch.func``
+    transform, no forward-mode tangent."""
+    return not (t.requires_grad or t.is_inference()
+                or torch._C._functorch.is_functorch_wrapped_tensor(t)
+                or torch.autograd.forward_ad.unpack_dual(t).tangent
+                is not None)
+
+
 def hard_bc_partials(raw_partials, lift_fn, bubble_fn):
     """Partials of ``u = lift + bubble·v`` from the RAW net's partials by
     the product rule:
@@ -310,9 +320,19 @@ def hard_bc_partials(raw_partials, lift_fn, bubble_fn):
     lift/bubble derivatives come from the generic jvp engine;
     ``raw_partials(params, z, need)`` supplies v and its derivatives and
     may return a superset of ``need`` (kernel B1 returns its full stream
-    set)."""
+    set).
+
+    The lift's and bubble's partials depend on ``z`` alone, so the closure
+    keeps those of the last point set: a call on the same plain tensor
+    (no autograd or functorch state), unchanged since (its version
+    counter, shared with its views), with the same ``need`` reuses them.
+    Any other ``z`` computes them afresh.  The entry is one tuple, set in
+    one assignment, so threads sharing the predictor never read half of
+    one."""
+    cache = None    # (z, z._version, need, l, b)
 
     def tpinn_partials(params, z, indices):
+        nonlocal cache
         from tpinn_torch.core import deriv
 
         need = set()
@@ -322,11 +342,20 @@ def hard_bc_partials(raw_partials, lift_fn, bubble_fn):
                 need.add((ix[0],))
                 need.add((ix[1],))
         need.add(())
-        need = sorted(need, key=lambda t: (len(t), t))
+        need = tuple(sorted(need, key=lambda t: (len(t), t)))
         v = raw_partials(params, z, need)
         with span("partials.lift_bubble"):
-            l = deriv.partials(lift_fn, z, need)
-            b = deriv.partials(bubble_fn, z, need)
+            entry = cache
+            plain = _plain(z)
+            if (plain and entry is not None and entry[0] is z
+                    and entry[1] == z._version and entry[2] == need):
+                with span("partials.lift_bubble.hit"):
+                    l, b = entry[3], entry[4]
+            else:
+                l = deriv.partials(lift_fn, z, need)
+                b = deriv.partials(bubble_fn, z, need)
+                if plain:
+                    cache = (z, z._version, need, l, b)
         out = {}
         for ix in indices:
             if ix == ():

@@ -27,6 +27,8 @@ import torch
 #   adam.resample                core/optim.py, the Adam phase's new points
 #   partials.lift_bubble         core/net.py hard_bc_partials, the lift's
 #                                and the bubble's partials
+#   partials.lift_bubble.hit     inside it, on a call that reuses the
+#                                partials kept for its point set
 #   b1.launch, b2.launch         kernels/mlp_taylor.py, kernels/taylor_vjp.py
 #                                ``_launch``: a kernel's host path (B2's on
 #                                autograd's device thread)
@@ -37,8 +39,9 @@ import torch
 #   read.lbfgs.search,           host reads of a device scalar in the line
 #   read.lbfgs.iter              search and in the iterate (``read``)
 SPANS = ("adam.forward", "adam.backward", "adam.resample",
-         "partials.lift_bubble", "b1.launch", "b2.launch", "lbfgs.iter",
-         "lbfgs.eval", "read.lbfgs.search", "read.lbfgs.iter")
+         "partials.lift_bubble", "partials.lift_bubble.hit", "b1.launch",
+         "b2.launch", "lbfgs.iter", "lbfgs.eval", "read.lbfgs.search",
+         "read.lbfgs.iter")
 
 _NULL = contextlib.nullcontext()
 # set by torch.profiler while it runs, for every thread
