@@ -38,6 +38,7 @@ from tpinn_torch.core import polish as tpolish
 from tpinn_torch.core import sample as tsample
 from tpinn_torch.core import train as ttrain
 from tpinn_torch.utils.convert import params_from_numpy
+from torch_spec_compare import field_names, tpinn_asdict
 
 TWO_PI = float(2 * np.pi)
 LAPLACE = "u_rr + 1/r*u_r + 1/r**2*u_tt"
@@ -753,9 +754,8 @@ def test_recipes_equal_tpinn(name):
 
     jp, jspec = jproblems.get_recipe(name)
     tp, tspec = tproblems.get_recipe(name)
-    assert dataclasses.asdict(tspec) == dataclasses.asdict(jspec)
-    assert [f.name for f in dataclasses.fields(tspec)] == [
-        f.name for f in dataclasses.fields(jspec)]
+    assert tpinn_asdict(tspec) == dataclasses.asdict(jspec)
+    assert field_names(tspec) == [f.name for f in dataclasses.fields(jspec)]
     jrec, trec = JRECIPES[name], tproblems.RECIPES[name]
     for f in dataclasses.fields(jrec):
         if f.name != "spec":

@@ -42,6 +42,7 @@ from tpinn_torch.core import pde as tpde
 from tpinn_torch.core import sample as tsample
 from tpinn_torch.core import train as ttrain
 from tpinn_torch.utils.convert import params_from_numpy
+from torch_spec_compare import field_names, tpinn_asdict
 
 NAMES = sorted(tproblems.PRESETS)
 NEW = [n for n in NAMES if n not in ("annulus_laplace", "poisson_1d")]
@@ -291,12 +292,10 @@ def test_recipe_equals_tpinn(name):
     """TrainSpec and Recipe field for field, and what get_recipe returns."""
     jp, jspec = jproblems.get_recipe(name)
     tp, tspec = tproblems.get_recipe(name)
-    assert dataclasses.asdict(tspec) == dataclasses.asdict(jspec)
-    assert [f.name for f in dataclasses.fields(tspec)] == [
-        f.name for f in dataclasses.fields(jspec)]
+    assert tpinn_asdict(tspec) == dataclasses.asdict(jspec)
+    assert field_names(tspec) == [f.name for f in dataclasses.fields(jspec)]
     for st, sj in zip(tspec.stages, jspec.stages):
-        assert [f.name for f in dataclasses.fields(st)] == [
-            f.name for f in dataclasses.fields(sj)]
+        assert field_names(st) == [f.name for f in dataclasses.fields(sj)]
     jrec, trec = JRECIPES[name], tproblems.RECIPES[name]
     assert [f.name for f in dataclasses.fields(trec)] == [
         f.name for f in dataclasses.fields(jrec)]
@@ -559,9 +558,9 @@ def test_kdv_1d_recipe_path_against_tpinn(tmp_path):
         jspec, **{f.name: getattr(cut, f.name)
                   for f in dataclasses.fields(cut) if f.name != "stages"},
         stages=tuple(dataclasses.replace(
-            sj, **dataclasses.asdict(st))
+            sj, **tpinn_asdict(st))
             for sj, st in zip(jspec.stages, cut.stages)))
-    assert dataclasses.asdict(jspec) == dataclasses.asdict(spec)
+    assert dataclasses.asdict(jspec) == tpinn_asdict(spec)
     jres = jtrain.run_training(jprob, jspec)
     assert jres.history[-1, 0] < 0.5 * jres.history[0, 0]
     assert res.rel_l2 < 3.0 * jres.rel_l2 and jres.rel_l2 < 3.0 * res.rel_l2, (

@@ -126,7 +126,7 @@ def test_every_span_is_opened_in_the_program():
     read_at = {"read." + s for s in re.findall(r'\bread\([^()]*(?:\([^()]*\)'
                                                r'[^()]*)*, "([\w.]+)"\)', src)}
     assert opened | read_at == set(profiling.SPANS)
-    assert len(profiling.SPANS) == len(set(profiling.SPANS)) == 11
+    assert len(profiling.SPANS) == len(set(profiling.SPANS)) == 13
 
 
 def _adam_run(profiled, tmp_path):

@@ -108,9 +108,9 @@ def cmd_train(args):
         }))
         return
     if args.recipe:
-        from tpinn_torch.problems.recipes import RECIPES
+        from tpinn_torch.problems.recipes import find_recipe
 
-        rec_march = RECIPES[args.problem].march
+        rec_march = find_recipe(args.problem)[1].march
         if rec_march:
             from tpinn_torch.core.march import run_time_marching
 

@@ -24,6 +24,8 @@ from typing import Callable, Dict, Iterable, Tuple
 
 import torch
 
+from tpinn_torch.utils.profiling import span
+
 Tensor = torch.Tensor
 MultiIndex = Tuple[int, ...]  # sorted tuple of coordinate indices; () == value
 
@@ -99,23 +101,31 @@ def partials(
     :return: dict mapping each requested multi-index (plus any byproducts)
         to an ``[N, m]`` tensor.
     """
+    with span("partials.generic"):
+        return _partials(f, z, indices)
+
+
+def _partials(f, z, indices) -> Dict[MultiIndex, Tensor]:
     pairs, singles, highers, want_value = plan_passes(indices)
     out: Dict[MultiIndex, Tensor] = {}
 
     for (i, j) in pairs:
-        u, u_i, u_j, u_ij = pair_pass(f, z, i, j)
+        with span("partials.generic.pass"):
+            u, u_i, u_j, u_ij = pair_pass(f, z, i, j)
         out.setdefault((), u)
         out[(i,)] = u_i
         out[(j,)] = u_j
         out[(i, j)] = u_ij
 
     for i in singles:
-        u, u_i = first_pass(f, z, i)
+        with span("partials.generic.pass"):
+            u, u_i = first_pass(f, z, i)
         out.setdefault((), u)
         out[(i,)] = u_i
 
     for ix in highers:
-        out[ix] = directional(f, z, ix)
+        with span("partials.generic.pass"):
+            out[ix] = directional(f, z, ix)
 
     if want_value and () not in out:
         out[()] = f(z)

@@ -116,6 +116,13 @@ def run_ensemble_training(
         seeds = [spec.seed + 1000 * i for i in range(n_members)]
     if len(seeds) != n_members:
         raise ValueError(f"{len(seeds)} seeds for n_members={n_members}")
+    if spec.lsq_polish != "off" and any(st.weight_fact is not None
+                                        for st in spec.stages):
+        # the members' last-layer solve needs a plain output weight: say so
+        # before the first member trains
+        raise ValueError("an ensemble of weight-factorised PirateNets "
+                         "trains with lsq_polish='off' (polish."
+                         "last_layer_lsq solves for a plain output weight)")
     dev = resolve_device(device)
 
     def log(msg):

@@ -21,6 +21,13 @@ and converted JAX parameters plug in unchanged:
   per-layer interpolation ``h ← (1−t)·u + t·v``).  Both extend the
   pytree beside ``layers``; they lie outside kernels B1/B2 (plain dense
   only), so their derivatives come from the generic jvp engine.
+- The PirateNet of Wang et al. (2024, arXiv:2402.00326;
+  ``pirate_blocks`` > 0): Fourier features Φ of width ``width``, two gate
+  encoders U, V, then per block three gated dense layers and a trainable
+  skip ``x ← α·h + (1−α)·x`` with α starting at 0, so the net starts as
+  the output layer on Φ.  With ``weight_fact`` every dense layer stores
+  the random weight factorisation (``g`` [dout], ``v`` [din, dout],
+  W = v·diag(g)) in place of ``w``.  The generic jvp engine takes it.
 
 Every dense product is full fp32 (``torch.matmul`` with TF32 left off):
 ``MLPSpec.precision`` is carried only so JAX checkpoint metas load.
@@ -30,7 +37,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import asdict, dataclass
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -162,6 +169,12 @@ class MLPSpec:
     :param modified: the modified-MLP gating of Wang et al. (2021).
     :param precision: carried for checkpoint compatibility; products are
         always full fp32 here.
+    :param pirate_blocks: if > 0, a PirateNet of this many blocks of
+        ``width``; ``depth`` then counts the blocks' dense layers (3 per
+        block), ``fourier_features`` must be ``width / 2`` and σ =
+        ``act_hidden`` = ``act_first`` throughout, with ``scl`` 1.
+    :param weight_fact: ``(mean, std)`` of the random weight factorisation
+        of a PirateNet's dense layers (None: plain ``w``).
     """
 
     depth: int
@@ -175,10 +188,39 @@ class MLPSpec:
     fourier_scale: float = 1.0
     modified: bool = False
     precision: str = "highest"
+    pirate_blocks: int = 0
+    weight_fact: Optional[Tuple[float, float]] = None
+
+    def __post_init__(self):
+        if self.weight_fact is not None and not self.pirate_blocks:
+            raise ValueError("weight_fact applies to a PirateNet "
+                             "(pirate_blocks > 0) only")
+        if not self.pirate_blocks:
+            return
+        why = []
+        if 2 * self.fourier_features != self.width:
+            why.append(f"fourier_features={self.fourier_features} with "
+                       f"width={self.width} (the skip needs Φ, of 2 * "
+                       "fourier_features columns, as wide as a block)")
+        if self.modified:
+            why.append("modified=True (its gates are the block's own)")
+        if self.depth != 3 * self.pirate_blocks:
+            why.append(f"depth={self.depth} (3 dense layers a block: "
+                       f"{3 * self.pirate_blocks})")
+        if self.act_first != self.act_hidden:
+            why.append(f"act_first={self.act_first!r} differs from "
+                       f"act_hidden={self.act_hidden!r}")
+        if self.scl != 1.0:
+            why.append(f"scl={self.scl} (the blocks have no frequency "
+                       "scale)")
+        if why:
+            raise ValueError(f"a PirateNet of {self.pirate_blocks} blocks "
+                             "cannot have " + "; ".join(why))
 
     @property
     def is_plain(self) -> bool:
-        return not (self.fourier_features or self.modified)
+        return not (self.fourier_features or self.modified
+                    or self.pirate_blocks)
 
 
 def init_params(
@@ -191,7 +233,9 @@ def init_params(
     """Initialize the parameter pytree for ``spec``: ``{"layers": [...]}``,
     with ``fourier_b`` [n_in, F] and the ``gate_u``/``gate_v`` layers beside
     it for the other families.  Draw order: ``fourier_b``, the layers, the
-    gates."""
+    gates.  A PirateNet (:func:`init_pirate`) draws in its own order."""
+    if spec.pirate_blocks:
+        return init_pirate(generator, spec, feature_map, device, dtype)
     n_in = feature_map.num_features
     p: dict = {}
     if spec.fourier_features:
@@ -207,10 +251,82 @@ def init_params(
     return p
 
 
+def init_pirate(
+    generator: torch.Generator,
+    spec: MLPSpec,
+    feature_map: FeatureMap,
+    device,
+    dtype=torch.float32,
+) -> dict:
+    """A PirateNet's pytree: ``fourier_b`` [n_in, width/2], ``gate_u`` and
+    ``gate_v``, ``layers`` (three a block, then the output layer) and
+    ``alpha`` [blocks] = 0.  Draw order: ``fourier_b`` (normal, times
+    ``fourier_scale``), then ``gate_u``, ``gate_v``, the blocks' layers in
+    order and the output layer, each as :func:`init_mlp` draws it (w, then
+    b) and, with ``weight_fact = (mean, std)``, then s ~ N(mean, std) per
+    output column: g = exp(s), v = w / g."""
+    n_in = feature_map.num_features
+    b = torch.randn((n_in, spec.fourier_features), dtype=dtype,
+                    device=generator.device, generator=generator)
+    p: dict = {"fourier_b": (b * spec.fourier_scale).to(device)}
+    w = spec.width
+    shapes = [(w, w)] * (2 + 3 * spec.pirate_blocks) + [(w, spec.out_dim)]
+    dense = []
+    for din, dout in shapes:
+        # drawn and factorised on the generator's device, then moved
+        layer = init_mlp(generator, [din, dout], generator.device, dtype)[0]
+        if spec.weight_fact is not None:
+            mean, std = spec.weight_fact
+            s = torch.randn((dout,), dtype=dtype, device=generator.device,
+                            generator=generator)
+            g = torch.exp(mean + std * s)
+            layer = {"b": layer["b"], "g": g, "v": layer["w"] / g}
+        dense.append({k: t.to(device) for k, t in layer.items()})
+    p["gate_u"], p["gate_v"] = dense[0], dense[1]
+    p["layers"] = dense[2:]
+    p["alpha"] = torch.zeros((spec.pirate_blocks,), dtype=dtype,
+                             device=device)
+    return p
+
+
+def dense(layer: dict, h: Tensor) -> Tensor:
+    """``h @ W + b`` with W = ``w``, or v·diag(g) for a factorised layer."""
+    w = layer["g"] * layer["v"] if "g" in layer else layer["w"]
+    return torch.matmul(h, w) + layer["b"]
+
+
+def pirate_hidden(params: dict, h: Tensor, spec: MLPSpec) -> Tensor:
+    """The PirateNet up to its output layer, on embedded features ``h``:
+
+        Φ = [cos(h·B), sin(h·B)];  U = σ(Φ·W_u + b_u), V = σ(Φ·W_v + b_v)
+        x = Φ;  per block l: f = σ(x·W₁ + b₁),  z₁ = f⊙U + (1 − f)⊙V
+                             g = σ(z₁·W₂ + b₂), z₂ = g⊙U + (1 − g)⊙V
+                             h = σ(z₂·W₃ + b₃), x ← α_l·h + (1 − α_l)·x
+    """
+    act = activation(spec.act_hidden)
+    proj = torch.matmul(h, params["fourier_b"])
+    x = torch.cat([torch.cos(proj), torch.sin(proj)], dim=-1)
+    u = act(dense(params["gate_u"], x))
+    v = act(dense(params["gate_v"], x))
+    layers, alpha = params["layers"], params["alpha"]
+    for blk in range(spec.pirate_blocks):
+        l1, l2, l3 = layers[3 * blk:3 * blk + 3]
+        f = act(dense(l1, x))
+        z = f * u + (1.0 - f) * v
+        g = act(dense(l2, z))
+        z = g * u + (1.0 - g) * v
+        h = act(dense(l3, z))
+        a = alpha[blk]
+        x = a * h + (1.0 - a) * x
+    return x
+
+
 def mlp_hidden(params: dict, h: Tensor, spec: MLPSpec) -> Tensor:
     """Dense chain up to (and excluding) the output layer: the feature
     basis ``[N, width]`` that the output layer combines linearly (the
     last-layer solve of core.polish treats the net as this basis)."""
+    if spec.pirate_blocks:
+        return pirate_hidden(params, h, spec)
     act0 = activation(spec.act_first)
     acth = activation(spec.act_hidden)
     if spec.fourier_features:
@@ -235,9 +351,7 @@ def mlp_hidden(params: dict, h: Tensor, spec: MLPSpec) -> Tensor:
 
 def mlp_apply(params: dict, h: Tensor, spec: MLPSpec) -> Tensor:
     """Dense chain on already-embedded features ``h``."""
-    h = mlp_hidden(params, h, spec)
-    last = params["layers"][-1]
-    return torch.matmul(h, last["w"]) + last["b"]
+    return dense(params["layers"][-1], mlp_hidden(params, h, spec))
 
 
 # ---------------------------------------------------------------------------
@@ -392,9 +506,21 @@ def wrap_hard_bc(raw_predictor, lift_fn, bubble_fn):
     return f_hard
 
 
+# fields of the port alone, left out of a checkpoint's meta at their
+# defaults, so that the meta of every other net is tpinn's
+_PORT_ONLY = {"pirate_blocks": 0, "weight_fact": None}
+
+
 def spec_to_dict(spec: MLPSpec) -> dict:
-    return asdict(spec)
+    d = asdict(spec)
+    for k, default in _PORT_ONLY.items():
+        if d[k] == default:
+            del d[k]
+    return d
 
 
 def spec_from_dict(d: dict) -> MLPSpec:
+    d = dict(d)
+    if d.get("weight_fact") is not None:
+        d["weight_fact"] = tuple(float(x) for x in d["weight_fact"])
     return MLPSpec(**d)

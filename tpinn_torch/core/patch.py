@@ -272,6 +272,10 @@ def run_patched(
     if spec.lbfgs_device is not None:
         raise ValueError("run_patched runs L-BFGS on the training device: "
                          "lbfgs_device must be None")
+    if st.pirate_blocks or st.weight_fact is not None:
+        raise ValueError("run_patched trains a plain dense net per patch; "
+                         "a PirateNet (pirate_blocks, weight_fact) is the "
+                         "single-net path (run_training)")
     dropped = [k for k in ("lsq_polish", "deflation")
                if getattr(spec, k, "off") != "off"]
     if spec.ring_weight > 0:

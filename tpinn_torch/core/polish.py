@@ -278,6 +278,11 @@ def _last_layer_lsq(predictor, compiled, params, data, lw0, source_fn,
         bias_fn = None
 
     last = stage_params["layers"][-1]
+    if "w" not in last:
+        raise ValueError(
+            "last_layer_lsq solves for the output layer's weight w; this "
+            "net's output layer is weight-factorised (g, v: a PirateNet "
+            "with weight_fact), so train it with lsq_polish='off'")
     # the whole module assumes a scalar u: one output column, one bias.
     # A wider output layer would silently solve only column 0's problem
     # (or shape-error later) — reject it up front instead.

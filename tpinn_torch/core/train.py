@@ -137,8 +137,9 @@ class ProblemSpec:
 @dataclass(frozen=True)
 class StageSpec:
     """Architecture/schedule of one training stage (the fields and defaults
-    of ``tpinn.core.train.StageSpec``).  ``None`` scales are derived from
-    the previous stage's diagnostics (stage ≥ 2 only)."""
+    of ``tpinn.core.train.StageSpec``, and the port's PirateNet fields
+    ``pirate_blocks`` and ``weight_fact``, net.MLPSpec's).  ``None`` scales
+    are derived from the previous stage's diagnostics (stage ≥ 2 only)."""
 
     depth: int
     width: int
@@ -159,6 +160,8 @@ class StageSpec:
     lr: Optional[float] = None             # per-stage Adam lr
     equation: Optional[str] = None         # per-stage equation override
     lw: Optional[Tuple[float, float]] = None  # per-stage (f, df) weights
+    pirate_blocks: int = 0                 # > 0: a PirateNet (net.MLPSpec)
+    weight_fact: Optional[Tuple[float, float]] = None  # its RWF (mean, std)
 
 
 @dataclass(frozen=True)
@@ -621,6 +624,7 @@ def run_training(
             act_hidden=st.act_hidden, scl=float(scl), epsil=float(epsil),
             fourier_features=st.fourier_features,
             fourier_scale=st.fourier_scale, modified=st.modified,
+            pirate_blocks=st.pirate_blocks, weight_fact=st.weight_fact,
         )
         params = net.init_params(seeded(4 * si, "cpu"), mspec, feature_map,
                                  dev, dtype)

@@ -3,7 +3,7 @@
 Every scalar preset of ``tpinn.problems``, each with a torch oracle, its
 BC groups and (where ``tpinn`` has one) its hard-BC ansatz, and the
 best-known training recipes (``RECIPES``, ``get_recipe``;
-tpinn_torch.problems.recipes), so that
+tpinn_torch.problems.recipes; the port's own in ``PORT_RECIPES``), so that
 
     problem, spec = problems.get_recipe("poisson_3d")
     result = train.run_training(problem, spec, device="cuda")
@@ -31,10 +31,12 @@ import torch
 
 from tpinn_torch.core import net, pde, sample
 from tpinn_torch.core.train import ProblemSpec
-from tpinn_torch.problems.recipes import RECIPES, Recipe
+from tpinn_torch.problems.recipes import (PORT_RECIPES, RECIPES, Recipe,
+                                         find_recipe)
 from tpinn_torch.problems.systems import SYSTEM_PRESETS, get_system
 
-__all__ = ["PRESETS", "HARD_BC", "RECIPES", "Recipe", "SYSTEM_PRESETS",
+__all__ = ["PRESETS", "HARD_BC", "RECIPES", "PORT_RECIPES", "Recipe",
+           "SYSTEM_PRESETS",
            "get_system", "get_problem",
            "get_recipe", "with_hard_bc", "annulus_laplace", "poisson_1d",
            "burgers_1d", "burgers_shock", "poisson_2d", "heat_2d",
@@ -510,12 +512,10 @@ def with_hard_bc(problem: ProblemSpec) -> ProblemSpec:
 
 
 def get_recipe(name: str):
-    """(ProblemSpec, TrainSpec) of the preset's best-known configuration."""
-    if name not in RECIPES:
-        raise KeyError(f"no recipe for {name!r}; available: "
-                       f"{sorted(RECIPES)}")
-    rec = RECIPES[name]
-    problem = get_problem(name)
+    """(ProblemSpec, TrainSpec) of the preset's best-known configuration,
+    or of one of the port's own recipes (``PORT_RECIPES``)."""
+    preset, rec = find_recipe(name)
+    problem = get_problem(preset)
     if rec.hard_bc:
         problem = with_hard_bc(problem)
     return problem, rec.spec

@@ -25,6 +25,10 @@ Recipe notes:
   1-D/2-D and box-shaped).
 - ``pad_features=3`` is kept because the recipes are copied field for
   field; it duplicates an input column and leaves the model class as it is.
+- ``PORT_RECIPES`` holds the port's own recipes, which tpinn lacks, each
+  on one of the presets: ``allen_cahn_pirate`` poses ``allen_cahn`` with
+  its hard IC for the published PirateNet.  ``RECIPES`` stays tpinn's
+  table.
 - ``march`` > 0 marks a time-marching configuration (``convection_1d``,
   ``allen_cahn``, ``wave_1d``); ``spec`` then describes ONE window, and
   the recipe runs as
@@ -35,6 +39,7 @@ Recipe notes:
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Dict, Tuple
 
 from tpinn_torch.core.train import StageSpec, TrainSpec
 
@@ -237,3 +242,41 @@ RECIPES = {
         ),
         hard_bc=False, expected_rel_l2=5.3e-3, run_tag="ls1"),
 }
+
+
+# The port's own recipes: name -> (preset, Recipe).
+PORT_RECIPES: Dict[str, Tuple[str, Recipe]] = {
+    # the PirateNet of Wang et al. 2024 (arXiv:2402.00326) as jaxpi's
+    # examples/allen_cahn configures it: 3 blocks of 256, Fourier features
+    # of width 256, random weight factorisation, tanh; 8,192 points a step,
+    # causal weights over 32 slabs of t, Adam alone.  The hard IC meets
+    # u(x, 0) for any net; periodic_fit makes x periodic.  expected_rel_l2
+    # is the order the paper reports for Allen–Cahn, not a run of this
+    # repo (provisional).
+    "allen_cahn_pirate": ("allen_cahn", Recipe(
+        spec=TrainSpec(
+            n_col=6144, n_band=0, n_adaptive=2048, n_bd=512,
+            lw=(1.0, 0.0), lr=1e-3, grid=111,
+            stages=(StageSpec(depth=9, width=256, act_first="tanh",
+                              act_hidden="tanh", scl=1.0, epsil=1.0,
+                              adam_epochs=300000, lbfgs_epochs=0,
+                              fourier_features=128, fourier_scale=2.0,
+                              pirate_blocks=3, weight_fact=(1.0, 0.1)),),
+            testing_size=(201, 101), adam_precision=None,
+            causal_eps=1.0, causal_bins=32, causal_axis="t",
+            lsq_polish="off", deflation="off",
+        ),
+        hard_bc=True, expected_rel_l2=1e-5, run_tag="none",
+        provisional=True)),
+}
+
+
+def find_recipe(name: str) -> Tuple[str, Recipe]:
+    """``(preset, Recipe)`` of a recipe of ``RECIPES`` (on the preset of
+    its own name) or of ``PORT_RECIPES``; KeyError for any other name."""
+    if name in RECIPES:
+        return name, RECIPES[name]
+    if name in PORT_RECIPES:
+        return PORT_RECIPES[name]
+    raise KeyError(f"no recipe for {name!r}; available: "
+                   f"{sorted(RECIPES) + sorted(PORT_RECIPES)}")

@@ -29,6 +29,10 @@ import torch
 #                                and the bubble's partials
 #   partials.lift_bubble.hit     inside it, on a call that reuses the
 #                                partials kept for its point set
+#   partials.generic             core/deriv.py partials, the generic jvp
+#                                engine's partials of one call
+#   partials.generic.pass        inside it, one jvp pass: a pair_pass, a
+#                                first_pass or a nested directional
 #   b1.launch, b2.launch         kernels/mlp_taylor.py, kernels/taylor_vjp.py
 #                                ``_launch``: a kernel's host path (B2's on
 #                                autograd's device thread)
@@ -41,7 +45,7 @@ import torch
 SPANS = ("adam.forward", "adam.backward", "adam.resample",
          "partials.lift_bubble", "partials.lift_bubble.hit", "b1.launch",
          "b2.launch", "lbfgs.iter", "lbfgs.eval", "read.lbfgs.search",
-         "read.lbfgs.iter")
+         "read.lbfgs.iter", "partials.generic", "partials.generic.pass")
 
 _NULL = contextlib.nullcontext()
 # set by torch.profiler while it runs, for every thread
